@@ -6,12 +6,20 @@
 // PyTorch twins (icp_tpu_torch/kernels/fused_step.py, lane_dot and dot3) do,
 // one rounding per multiply and per add in lane order, and kernel and twin
 // make bit-identical nearest-neighbour decisions.
+//
+// The per-bin search below is shared by K3 (bin_point_moments.cu), K4
+// (bin_min_dists.cu) and K7 (bin_gn_moments.cu), so the three kernels round
+// their scores identically: it is the JAX package's _score_core /
+// _search_core (icp_tpu/kernels/fused_step.py:449-517).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace icp {
+
+// Robust M-estimator kinds, as ``robust_kind`` of the wrappers passes them.
+enum Robust : int { kNone = 0, kHuber = 1, kTukey = 2, kTrimmed = 3 };
 
 __device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
 
@@ -44,6 +52,127 @@ __device__ __forceinline__ float dot3_8(const float* a_hi, const float* a_lo,
   const float hl = lane_dot<8>(a_hi, b_lo, stride);
   const float lh = lane_dot<8>(a_lo, b_hi, stride);
   return __fadd_rn(__fadd_rn(hh, hl), lh);
+}
+
+// Shared-memory staging of one bin, done by the whole block: the bf16 halves
+// of the first 8 lanes of its cb rows (row stride ld floats) and its masked
+// |b|^2 row. Needs cb * 17 floats of shared memory.
+struct BinStage {
+  float* hi;  // [cb][8]
+  float* lo;  // [cb][8]
+  float* sq;  // [cb]
+};
+
+__device__ __forceinline__ BinStage stage_bin(float* smem, const float* rows,
+                                              int ld, const float* sq_b,
+                                              int cb) {
+  BinStage s{smem, smem + cb * 8, smem + cb * 16};
+  for (int i = threadIdx.x; i < cb * 8; i += blockDim.x) {
+    bf16_split(rows[(i >> 3) * ld + (i & 7)], s.hi[i], s.lo[i]);
+  }
+  for (int i = threadIdx.x; i < cb; i += blockDim.x) s.sq[i] = sq_b[i];
+  return s;
+}
+
+// One query slot searched against its staged bin.
+struct Match {
+  float qc[8];  // transformed, rep-centered query p @ G + (b_row - rep)
+  float sq_q;   // |qc|^2_w
+  float best;   // min_c sq_b[c] - 2 dot3(qc * w8, b_c): +inf if all masked
+  int slot;     // first argmin
+  float valid;  // qvalid * (|p_xyz|_1 > 0)
+};
+
+// g: the (8, 8) similarity G row-major; off = b_row - rep; w8 the metric.
+__device__ __forceinline__ Match search(const float p[8], float qvalid,
+                                        const float* g, const float* off,
+                                        const float w8[8], const BinStage& bin,
+                                        int cb) {
+  Match r;
+  float qw[8], q_hi[8], q_lo[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    r.qc[j] = __fadd_rn(lane_dot<8>(p, g + j, 8), off[j]);
+    qw[j] = __fmul_rn(r.qc[j], w8[j]);
+    bf16_split(qw[j], q_hi[j], q_lo[j]);
+  }
+  r.sq_q = lane_dot<8>(qw, r.qc, 1);
+  r.best = inf();
+  r.slot = 0;
+  for (int c = 0; c < cb; ++c) {
+    const float cross = dot3_8(q_hi, q_lo, bin.hi + c * 8, bin.lo + c * 8, 1);
+    const float score = __fsub_rn(bin.sq[c], __fmul_rn(2.0f, cross));
+    if (score < r.best) {
+      r.best = score;
+      r.slot = c;
+    }
+  }
+  const float vo = (fabsf(p[0]) + fabsf(p[1]) + fabsf(p[2])) > 0.0f ? 1.0f : 0.0f;
+  r.valid = __fmul_rn(qvalid, vo);
+  return r;
+}
+
+__device__ __forceinline__ bool is_finite(float x) {
+  return fabsf(x) <= 3.402823466e38f;
+}
+
+// Blended squared NN distance max(best + |qc|^2_w, 0).
+__device__ __forceinline__ float match_d2(const Match& m) {
+  return fmaxf(__fadd_rn(m.best, m.sq_q), 0.0f);
+}
+
+// IRLS factor of ops/moments.py robust_factor on d2 >= 0.
+__device__ __forceinline__ float robust_factor(float d2, int kind, float delta) {
+  const float delta2 = __fmul_rn(delta, delta);
+  switch (kind) {
+    case kHuber:
+      return fminf(1.0f, __fmul_rn(delta, rsqrtf(fmaxf(d2, 1e-12f))));
+    case kTukey: {
+      const float z = fmaxf(__fsub_rn(1.0f, __fdiv_rn(d2, delta2)), 0.0f);
+      return __fmul_rn(z, z);
+    }
+    case kTrimmed:
+      return d2 <= delta2 ? 1.0f : 0.0f;
+    default:
+      return 1.0f;
+  }
+}
+
+// The composed pair weight of _search_core: validity (slot occupied, original
+// point non-zero, bin non-empty) x [reference 100 / (100 + d2)] x [robust].
+__device__ __forceinline__ float match_weight(const Match& m, int weighted,
+                                              int robust, float delta) {
+  float w = __fmul_rn(m.valid, is_finite(m.best) ? 1.0f : 0.0f);
+  if (weighted || robust != kNone) {
+    const float d2 = match_d2(m);
+    if (weighted) w = __fmul_rn(w, __fdiv_rn(100.0f, __fadd_rn(100.0f, d2)));
+    if (robust != kNone) w = __fmul_rn(w, robust_factor(d2, robust, delta));
+  }
+  return w;
+}
+
+// Fixed-order block sum of N per-thread values (a warp-shuffle tree, then
+// the warps in order): out[e] = sum over the block's threads of acc[e],
+// written by threads 0..N-1. red must hold (blockDim.x / 32) * N floats.
+template <int N>
+__device__ __forceinline__ void block_sum(const float (&acc)[N], float* red,
+                                          float* out) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    float v = acc[e];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if (lane == 0) red[warp * N + e] = v;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < N; e += blockDim.x) {
+    float s = red[e];
+    for (int k = 1; k < warps; ++k) s += red[k * N + e];
+    out[e] = s;
+  }
 }
 
 }  // namespace icp

@@ -18,7 +18,8 @@ import torch
 
 from icp_tpu_torch.icp.quaternion import qangle_deg
 from icp_tpu_torch.icp.state import ICPState, identity_state
-from icp_tpu_torch.icp.step import icp_step
+from icp_tpu_torch.icp.step import gn_mode, icp_step
+from icp_tpu_torch.ops.normals import normals_for
 from icp_tpu_torch.ops.sampling import sample_representative_indices
 from icp_tpu_torch.rbc.construct import RBCIndex, rbc_construct
 from icp_tpu_torch.runtime.config import ICPConfig, ICPParams
@@ -50,6 +51,11 @@ def icp_run(moving8: torch.Tensor, target: RBCIndex, params: ICPParams,
     params = params.to(dev)
     state = identity_state(moving8.dtype, dev) if init is None else init
     done = torch.zeros((), dtype=torch.bool, device=dev)
+    # The moving normals (symmetric PLANE / GICP) are loop-invariant: once
+    # per registration, not once per step.
+    mnormals = None
+    if config.needs_normals and gn_mode(config) != "plane":
+        mnormals = normals_for(moving8, config.normal_mode)
 
     def running(s: ICPState, done: torch.Tensor) -> torch.Tensor:
         return torch.logical_and(s.k < config.max_iterations,
@@ -59,7 +65,8 @@ def icp_run(moving8: torch.Tensor, target: RBCIndex, params: ICPParams,
     while bool(running(state, done)):  # one host read per chunk
         for _ in range(CHUNK):
             take = running(state, done)
-            new = icp_step(state, moving8, target, params, config)
+            new = icp_step(state, moving8, target, params, config,
+                           moving_normals=mnormals)
             state = _select(take, new, state)
             done = torch.where(take, converged(new, params), done)
     return state
@@ -67,13 +74,16 @@ def icp_run(moving8: torch.Tensor, target: RBCIndex, params: ICPParams,
 
 def build_index(fixed8: torch.Tensor, params: ICPParams,
                 config: ICPConfig) -> RBCIndex:
-    """Representative sampling + RBC construction over the fixed landmarks."""
+    """Representative sampling + RBC construction over the fixed landmarks,
+    with their normals when the objective needs them."""
     rep_ids = sample_representative_indices(fixed8.shape[0], config.n_r,
                                             config.rep_grid,
                                             device=fixed8.device)
     reps = fixed8[rep_ids.long()]
+    normals = (normals_for(fixed8, config.normal_mode)
+               if config.needs_normals else None)
     return rbc_construct(fixed8, reps, params.alpha, config.bin_capacity,
-                         rep_db_ids=rep_ids)
+                         rep_db_ids=rep_ids, normals=normals)
 
 
 def register(fixed8: torch.Tensor, moving8: torch.Tensor,

@@ -61,14 +61,19 @@ def index_from_numpy(fields: Mapping[str, Any], device="cpu") -> RBCIndex:
 
     ``fields`` maps each :class:`RBCIndex` field name to an array (e.g. the
     JAX ``RBCIndex._asdict()`` with its leaves converted by ``np.asarray``);
-    ``layout`` is a (counts, offsets, valid, grouped) sequence. Fields the
-    port does not hold (normals, GN tensors) are ignored. Integer fields
-    become int32 and float fields float32, as the port keeps them.
+    ``layout`` is a (counts, offsets, valid, grouped) sequence. The normal
+    fields (``normals``, ``bin_normals``, ``bins_vals12``, ``gn_w``) cross
+    as they are: None where the source index has None or lacks the field.
+    Integer fields become int32 and float fields float32, as the port keeps
+    them.
     """
     out = {}
     for f in dataclasses.fields(RBCIndex):
-        value = fields[f.name]
-        if f.name == "layout":
+        value = fields.get(f.name)
+        if value is None:
+            if f.default is dataclasses.MISSING:
+                raise KeyError(f"index field {f.name!r} is missing")
+        elif f.name == "layout":
             counts, offsets, valid, grouped = value
             value = GroupedRows(
                 _tensor(counts, device).to(torch.int32),

@@ -10,11 +10,16 @@ Two kernels carry each iteration:
    per-bin counts equal ``bincount(rid)`` exactly.
 2. :func:`bin_point_moments` (K3, ``csrc/bin_point_moments.cu``): per bin,
    transform and center the grouped queries, search the rep-centered bin,
-   weight the match, and reduce to one 8x8 matrix
-   ``P_b = sum_i w_i u_i u_i^T`` with ``u = [m_c, 1, f_c, 1]``. Its
-   homogeneous lanes make P_b carry every statistic of the Horn solve:
-   sum(w) at [3, 3], the centroid sums in row/column 3, the cross-covariance
-   at [0:3, 4:7] and the deviation energies on the diagonal blocks.
+   weight the match (reference weight times the optional robust factor),
+   and reduce to one 8x8 matrix ``P_b = sum_i w_i u_i u_i^T`` with
+   ``u = [m_c, 1, f_c, 1]``. Its homogeneous lanes make P_b carry every
+   statistic of the Horn solve: sum(w) at [3, 3], the centroid sums in
+   row/column 3, the cross-covariance at [0:3, 4:7] and the deviation
+   energies on the diagonal blocks.
+
+With an adaptive robust scale, :func:`bin_min_dists` (K4,
+``csrc/bin_min_dists.cu``) runs the same search first and returns only each
+slot's squared NN distance, whose median sets the scale.
 
 The moments are per bin, centered on the representative, which keeps every
 product at offset scale; :func:`point_moments_from_P` translates them back to
@@ -38,6 +43,7 @@ import torch
 from icp_tpu_torch.icp.quaternion import quat_to_matrix
 from icp_tpu_torch.kernels import native
 from icp_tpu_torch.ops.distance import metric_weights
+from icp_tpu_torch.ops.moments import ROBUST_KINDS, robust_factor
 
 
 def _bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -161,13 +167,36 @@ rep_assign_counts.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def bin_point_moments_ref(mg: torch.Tensor, qvalid: torch.Tensor,
-                          reps: torch.Tensor, bins_c: torch.Tensor,
-                          sq_b_masked: torch.Tensor, G: torch.Tensor,
-                          b_row: torch.Tensor, alpha, *,
-                          weighted: bool) -> torch.Tensor:
-    """Plain twin of :func:`bin_point_moments` (the math of the JAX
-    package's ``_score_core`` / ``_search_core`` / ``_moment_math``)."""
+def device_scalars(dev: torch.device, *values) -> torch.Tensor:
+    """(n,) float32 tensor of scalars (floats or 0-d tensors) on ``dev``:
+    the kernels read alpha, the robust scale and eps on the device, so an
+    adaptive scale computed there never syncs the host. A Python float
+    becomes a fill on the device: copying it from host memory would wait
+    for the stream."""
+    return torch.cat([
+        v.to(torch.float32).reshape(1)
+        if isinstance(v, torch.Tensor) and v.device == dev
+        else torch.full((1,), float(v), dtype=torch.float32, device=dev)
+        for v in values])
+
+
+def robust_kind(robust: str) -> int:
+    """Index of a robust kernel name as the CUDA kernels take it."""
+    if robust not in ROBUST_KINDS:
+        raise ValueError(f"unknown robust kernel: {robust!r}")
+    return ROBUST_KINDS.index(robust)
+
+
+def search_ref(mg: torch.Tensor, qvalid: torch.Tensor, reps: torch.Tensor,
+               bins_c: torch.Tensor, sq_b_masked: torch.Tensor,
+               G: torch.Tensor, b_row: torch.Tensor, alpha):
+    """Plain twin of the kernels' shared per-bin search (``common.cuh``;
+    the JAX package's ``_score_core`` + argmin).
+
+    Returns (qc (n_r, cq, 8) transformed rep-centered queries, best_score
+    (n_r, cq), best_slot (n_r, cq), sq_q (n_r, cq) = |qc|^2_w, valid0
+    (n_r, cq) = qvalid * (original point non-zero)).
+    """
     # qc = (p @ G + b_row) - rep: transformed, rep-centered queries.
     off = b_row - reps
     qc = lane_dot(mg[..., None, :], G.T) + off[:, None, :]
@@ -176,14 +205,41 @@ def bin_point_moments_ref(mg: torch.Tensor, qvalid: torch.Tensor,
     sq_q = lane_dot(qg_w, qc)
     # +inf rides in sq_b_masked for invalid slots.
     scores = sq_b_masked[:, None, :] - 2.0 * dot3(qg_w[:, :, None, :],
-                                                  bins_c[:, None, :, :])
+                                                  bins_c[:, None, :, :8])
     best_score, best_slot = torch.min(scores, dim=-1)
-    # Validity: slot occupied AND original point non-zero AND bin non-empty.
     vo = (torch.sum(torch.abs(mg[..., :3]), dim=-1) > 0).to(mg.dtype)
-    w = qvalid * vo * torch.isfinite(best_score).to(mg.dtype)
-    if weighted:
+    return qc, best_score, best_slot, sq_q, qvalid * vo
+
+
+def match_weights_ref(best_score: torch.Tensor, sq_q: torch.Tensor,
+                      valid0: torch.Tensor, *, weighted: bool,
+                      robust: str = "none", robust_delta=0.0) -> torch.Tensor:
+    """The composed pair weight of the JAX package's ``_search_core``:
+    validity (slot occupied, original point non-zero, bin non-empty) times
+    the reference weight 100/(100+d^2) times the robust factor."""
+    w = valid0 * torch.isfinite(best_score).to(valid0.dtype)
+    if weighted or robust != "none":
+        # +inf on empty bins becomes a clean 0 in every factor below.
         d2 = torch.clamp(best_score + sq_q, min=0.0)
+    if weighted:
         w = w * (100.0 / (100.0 + d2))  # reference icpComputeReduceWeights
+    if robust != "none":
+        w = w * robust_factor(d2, robust, robust_delta)
+    return w
+
+
+def bin_point_moments_ref(mg: torch.Tensor, qvalid: torch.Tensor,
+                          reps: torch.Tensor, bins_c: torch.Tensor,
+                          sq_b_masked: torch.Tensor, G: torch.Tensor,
+                          b_row: torch.Tensor, alpha, *, weighted: bool,
+                          robust: str = "none",
+                          robust_delta=0.0) -> torch.Tensor:
+    """Plain twin of :func:`bin_point_moments` (the math of the JAX
+    package's ``_search_core`` / ``_moment_math``)."""
+    qc, best_score, best_slot, sq_q, valid0 = search_ref(
+        mg, qvalid, reps, bins_c, sq_b_masked, G, b_row, alpha)
+    w = match_weights_ref(best_score, sq_q, valid0, weighted=weighted,
+                          robust=robust, robust_delta=robust_delta)
     matched = torch.gather(bins_c, 1, best_slot[..., None].expand(-1, -1, 8))
     ones = torch.ones_like(qc[..., :1])
     u = torch.cat([qc[..., :3], ones, matched[..., :3], ones], dim=-1)
@@ -193,8 +249,8 @@ def bin_point_moments_ref(mg: torch.Tensor, qvalid: torch.Tensor,
 def bin_point_moments(mg: torch.Tensor, qvalid: torch.Tensor,
                       reps: torch.Tensor, bins_c: torch.Tensor,
                       sq_b_masked: torch.Tensor, G: torch.Tensor,
-                      b_row: torch.Tensor, alpha, *,
-                      weighted: bool) -> torch.Tensor:
+                      b_row: torch.Tensor, alpha, *, weighted: bool,
+                      robust: str = "none", robust_delta=0.0) -> torch.Tensor:
     """Fused per-bin search + weighting + 8x8 moment reduction; K3,
     replacing ``icp_tpu.kernels.fused_step.bin_point_moments_pallas``.
 
@@ -207,12 +263,16 @@ def bin_point_moments(mg: torch.Tensor, qvalid: torch.Tensor,
       G, b_row: from :func:`prep_similarity`.
       alpha: photometric blend (float or 0-d tensor).
       weighted: reference WEIGHTED (w = 100/(100+d^2)) vs REGULAR.
+      robust: "none" | "huber" | "tukey" | "trimmed"; its IRLS factor
+        (``ops.moments.robust_factor``) multiplies into w.
+      robust_delta: robust scale (float or 0-d tensor, read on the device).
     Returns:
       (n_r, 8, 8) per-bin moments P_b in the rep-centered frame.
     """
     if mg.device.type == "cpu":
         return bin_point_moments_ref(mg, qvalid, reps, bins_c, sq_b_masked,
-                                     G, b_row, alpha, weighted=weighted)
+                                     G, b_row, alpha, weighted=weighted,
+                                     robust=robust, robust_delta=robust_delta)
     native.require_cuda(mg, "mg")
     dev = mg.device
     n_r, cq, _ = mg.shape
@@ -225,20 +285,80 @@ def bin_point_moments(mg: torch.Tensor, qvalid: torch.Tensor,
     native.require(sq_b_masked, "sq_b_masked", (n_r, cb), f32, dev)
     native.require(G, "G", (8, 8), f32, dev)
     native.require(b_row, "b_row", (1, 8), f32, dev)
-    # alpha is read on the device: a 0-d tensor never syncs the host.
-    alpha_t = torch.as_tensor(alpha, dtype=f32, device=dev).reshape(1)
+    kind = robust_kind(robust)
+    scal = device_scalars(dev, alpha, robust_delta)
     P = torch.empty((n_r, 8, 8), dtype=f32, device=dev)
     lib = native.load_library()
     native.check(lib.icp_bin_point_moments(
         mg.data_ptr(), qvalid.data_ptr(), reps.data_ptr(), bins_c.data_ptr(),
         sq_b_masked.data_ptr(), G.data_ptr(), b_row.data_ptr(),
-        alpha_t.data_ptr(), n_r, cq, cb, int(weighted), P.data_ptr(),
+        scal.data_ptr(), n_r, cq, cb, int(weighted), kind, P.data_ptr(),
         native.stream_ptr(dev)), "icp_bin_point_moments")
     bin_point_moments.launches += 1
     return P
 
 
 bin_point_moments.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: per-bin nearest-neighbour distances only (adaptive robust scale)
+# ---------------------------------------------------------------------------
+
+
+def bin_min_dists_ref(mg: torch.Tensor, qvalid: torch.Tensor,
+                      reps: torch.Tensor, bins_c: torch.Tensor,
+                      sq_b_masked: torch.Tensor, G: torch.Tensor,
+                      b_row: torch.Tensor, alpha) -> torch.Tensor:
+    """Plain twin of :func:`bin_min_dists` (the JAX package's
+    ``_min_dist_math``)."""
+    _, best_score, _, sq_q, valid0 = search_ref(
+        mg, qvalid, reps, bins_c, sq_b_masked, G, b_row, alpha)
+    d2 = torch.clamp(best_score + sq_q, min=0.0)
+    keep = (valid0 > 0) & torch.isfinite(best_score)
+    return torch.where(keep, d2, torch.full_like(d2, float("inf")))
+
+
+def bin_min_dists(mg: torch.Tensor, qvalid: torch.Tensor, reps: torch.Tensor,
+                  bins_c: torch.Tensor, sq_b_masked: torch.Tensor,
+                  G: torch.Tensor, b_row: torch.Tensor, alpha) -> torch.Tensor:
+    """Blended squared NN distance of every grouped query slot, +inf where
+    the slot is empty, its original point is zero or its bin has no valid
+    point; K4, replacing ``icp_tpu.kernels.fused_step.bin_min_dists_pallas``.
+
+    Arguments as :func:`bin_point_moments`; on CUDA the rows of ``mg`` may
+    be lanes 0:8 of a wider grouped table (row stride read from the view).
+    Returns (n_r, cq) float32; feed ``ops.moments.adaptive_robust_delta``
+    with mask = isfinite.
+    """
+    if mg.device.type == "cpu":
+        return bin_min_dists_ref(mg, qvalid, reps, bins_c, sq_b_masked, G,
+                                 b_row, alpha)
+    native.require_cuda(mg, "mg")
+    dev = mg.device
+    n_r, cq, _ = mg.shape
+    cb = bins_c.shape[1]
+    f32 = torch.float32
+    ld_mg = native.require_rows(mg, "mg", (n_r, cq, 8), f32, dev)
+    native.require(qvalid, "qvalid", (n_r, cq), f32, dev)
+    native.require(reps, "reps", (n_r, 8), f32, dev)
+    native.require(bins_c, "bins_c", (n_r, cb, 8), f32, dev)
+    native.require(sq_b_masked, "sq_b_masked", (n_r, cb), f32, dev)
+    native.require(G, "G", (8, 8), f32, dev)
+    native.require(b_row, "b_row", (1, 8), f32, dev)
+    scal = device_scalars(dev, alpha)
+    d2 = torch.empty((n_r, cq), dtype=f32, device=dev)
+    lib = native.load_library()
+    native.check(lib.icp_bin_min_dists(
+        mg.data_ptr(), ld_mg, qvalid.data_ptr(), reps.data_ptr(),
+        bins_c.data_ptr(), sq_b_masked.data_ptr(), G.data_ptr(), b_row.data_ptr(),
+        scal.data_ptr(), n_r, cq, cb, d2.data_ptr(), native.stream_ptr(dev)),
+        "icp_bin_min_dists")
+    bin_min_dists.launches += 1
+    return d2
+
+
+bin_min_dists.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels of ``icp_tpu_torch/csrc``.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` for ``sm_90a`` into one shared
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` for ``sm_90a``, all
+of them at once, and one more ``nvcc`` links the objects into one shared
 library with a plain C interface, loaded with ctypes. The build runs at the
 first CUDA call, into ``build/icp_tpu_torch/<hash>/`` beside the package,
 keyed by a hash of the sources and flags, so a changed source rebuilds and an
@@ -31,7 +32,7 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "icp_tpu_
 # No --use_fast_math: the +inf slot mask and the 100/(100+d^2) weight
 # must stay IEEE.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,10 +42,19 @@ SIGNATURES = {
     "icp_rep_assign_counts": [_P, _P, _P, _I, _I, _P, _P, _P],
     # sorted_rows, starts, m, d, n_r, capacity, out, stream
     "icp_bin_table": [_P, _P, _I, _I, _I, _I, _P, _P],
-    # mg, qvalid, reps, bins_c, sq_b_masked, G, b_row, alpha,
-    # n_r, cq, cb, weighted, P, stream
+    # mg, qvalid, reps, bins_c, sq_b_masked, G, b_row, scal [alpha, delta],
+    # n_r, cq, cb, weighted, robust, P, stream
     "icp_bin_point_moments": [_P, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _P, _P],
+                              _I, _I, _I, _I, _I, _P, _P],
+    # mg, ld_mg, qvalid, reps, bins_c, sq_b_masked, G, b_row, scal [alpha],
+    # n_r, cq, cb, d2, stream
+    "icp_bin_min_dists": [_P, _I, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _P, _P],
+    # mg, ld_mg, nm, ld_nm, qvalid, reps, bins_vals, sq_b_masked, G, b_row,
+    # scal [alpha, delta, eps], n_r, cq, cb, mode, weighted, robust, P, Pz,
+    # stream
+    "icp_bin_gn_moments": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 
 build_info: dict = {}  # filled by load_library(): path, seconds, log
@@ -65,6 +75,37 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
+def _build(tmp: Path, lib_path: Path) -> str:
+    """Compile every ``.cu`` with its own nvcc process, all started together,
+    then link them into ``lib_path``. Returns the compilers' output."""
+    nvcc = _nvcc()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = tmp / (src.stem + ".o")
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((src, obj, proc))
+    log, failed = "", []
+    for src, _, proc in jobs:
+        out, _ = proc.communicate()
+        log += f"== {src.name}\n{out}"
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+    tmp_lib = tmp / lib_path.name
+    proc = subprocess.run(
+        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+         "-o", str(tmp_lib), *(str(obj) for _, obj, _ in jobs)],
+        capture_output=True, text=True, check=False)
+    log += proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+    os.replace(tmp_lib, lib_path)
+    return log
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Compile (if this source hash was never built) and load the kernels."""
@@ -78,22 +119,10 @@ def load_library() -> ctypes.CDLL:
     log = ""
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-        # Build under a temporary name and rename: concurrent processes never
-        # load a half-written library.
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu],
-                capture_output=True, text=True, check=False)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-            os.replace(tmp, lib_path)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        # Build in a private directory and rename the library into place:
+        # concurrent processes never load a half-written one.
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            log = _build(Path(tmp), lib_path)
         (out_dir / "build.log").write_text(log)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in SIGNATURES.items():
@@ -127,6 +156,24 @@ def require(t: torch.Tensor, name: str, shape: tuple, dtype: torch.dtype,
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def require_rows(t: torch.Tensor, name: str, shape: tuple, dtype: torch.dtype,
+                 device: torch.device) -> int:
+    """Validate a (n_r, cq, w) argument that a kernel reads row by row:
+    device, dtype, shape, unit lane stride and rows packed one after the
+    other, so a slice of the lanes of a wider contiguous table qualifies.
+    Returns the row stride in elements."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    ld = t.stride(1)
+    if t.stride(2) != 1 or ld < shape[2] or t.stride(0) != ld * shape[1]:
+        raise ValueError(f"{name}: rows must be packed, got strides {t.stride()}")
+    return ld
 
 
 def require_cuda(t: torch.Tensor, name: str) -> None:

@@ -1,5 +1,5 @@
 """Random-Ball-Cover construction over the fixed set (port of
-``icp_tpu.rbc.construct``, POINT-objective fields).
+``icp_tpu.rbc.construct``).
 
 1. point -> representative blended 8-D distances (one (n, 8) x (8, n_r)
    float32 product),
@@ -8,7 +8,9 @@
 4. the database grouped bin-major into a padded (n_r, capacity, 8) table,
 
 plus the search-time invariants hoisted out of the iteration loop: the
-rep-centered bins, the masked |b|^2 row and the moment-translation tensor.
+rep-centered bins, the masked |b|^2 row and the moment-translation tensor;
+with fixed-surface normals (PLANE / GICP) also the grouped normals, the
+12-wide payload K7 reads and the GN frame-translation tensor.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import dataclasses
 
 import torch
 
+from icp_tpu_torch.kernels.fused_gn import gn_translation_tensor
 from icp_tpu_torch.kernels.fused_step import point_translation_tensor
 from icp_tpu_torch.ops.distance import metric_weights, pairwise_sq_dists
 from icp_tpu_torch.rbc.grouping import GroupedRows, group_rows_by_bin
@@ -41,6 +44,11 @@ class RBCIndex:
         zero-geometry database points.
       alpha: 0-d photometric blend the index was built with.
       moment_w: (n_r, 8, 8, 18) hoisted POINT moment-translation tensor.
+      normals: (n, 3) fixed-surface normals, or None.
+      bin_normals: (n_r, capacity, 3) normals grouped with the bins, or None.
+      bins_vals12: (n_r, capacity, 12) ``[bins_centered | bin_normals | 0]``,
+        the payload of K7, or None.
+      gn_w: (n_r, 8, 8, 64) hoisted GN frame-translation tensor, or None.
     """
 
     reps: torch.Tensor
@@ -55,6 +63,10 @@ class RBCIndex:
     sq_b_masked: torch.Tensor
     alpha: torch.Tensor
     moment_w: torch.Tensor
+    normals: torch.Tensor | None = None
+    bin_normals: torch.Tensor | None = None
+    bins_vals12: torch.Tensor | None = None
+    gn_w: torch.Tensor | None = None
 
 
 def rbc_construct(db: torch.Tensor, reps: torch.Tensor, alpha,
@@ -71,22 +83,20 @@ def rbc_construct(db: torch.Tensor, reps: torch.Tensor, alpha,
         dropped from the bin (they stay in ``db`` and ``rep_id``).
       rep_db_ids: optional (n_r,) database indices of the representatives;
         else the nearest database point of each representative.
-      normals: fixed-surface normals, for the PLANE/GICP objectives of
-        ROADMAP slice 2; not ported yet.
+      normals: optional (n, 3) fixed-surface normals (PLANE / GICP),
+        grouped in the same payload sort as the points.
     """
-    if normals is not None:
-        raise NotImplementedError(
-            "rbc_construct with normals (PLANE/GICP) is ROADMAP slice 2")
     d2 = pairwise_sq_dists(db, reps, alpha)  # (n, n_r)
     rep_id = torch.argmin(d2, dim=1).to(torch.int32)
     if rep_db_ids is None:
         rep_db_ids = torch.argmin(d2, dim=0).to(torch.int32)
 
     # Database ids ride as a float column (exact up to 2^24 rows), so one
-    # permute and one table build group points and ids together.
+    # permute and one table build group points, ids and normals together.
     ids_col = torch.arange(db.shape[0], dtype=db.dtype, device=db.device)[:, None]
-    layout = group_rows_by_bin(rep_id, reps.shape[0], capacity, (db, ids_col))
-    bins, ids_g = layout.grouped
+    rows = (db, ids_col) if normals is None else (db, ids_col, normals)
+    layout = group_rows_by_bin(rep_id, reps.shape[0], capacity, rows)
+    bins, ids_g = layout.grouped[:2]
     bin_ids = ids_g[..., 0].to(torch.int32)
 
     bins_centered = bins - reps[:, None, :]
@@ -98,6 +108,15 @@ def rbc_construct(db: torch.Tensor, reps: torch.Tensor, alpha,
     sq_b_masked = torch.where(layout.valid & nonzero_db, sq_b,
                               torch.full_like(sq_b, float("inf")))
 
+    gn_fields = {}
+    if normals is not None:
+        bin_normals = layout.grouped[2]
+        gn_fields = dict(
+            normals=normals,
+            bin_normals=bin_normals,
+            bins_vals12=torch.cat([bins_centered, bin_normals,
+                                   bins.new_zeros(bins.shape[:2] + (1,))], dim=-1),
+            gn_w=gn_translation_tensor(reps))
     return RBCIndex(
         reps=reps,
         rep_db_ids=rep_db_ids,
@@ -111,4 +130,5 @@ def rbc_construct(db: torch.Tensor, reps: torch.Tensor, alpha,
         sq_b_masked=sq_b_masked,
         alpha=torch.as_tensor(alpha, dtype=db.dtype, device=db.device),
         moment_w=point_translation_tensor(reps),
+        **gn_fields,
     )

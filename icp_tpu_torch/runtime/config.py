@@ -7,10 +7,11 @@ tensors run the hand-written kernels, CPU tensors their plain twins), so the
 port has no such switch. ``ICPParams`` holds the dynamic scalars as Python
 floats, or as 0-d float32 tensors after :meth:`ICPParams.to`.
 
-The port covers the default registration path (POINT objective, RBC
-correspondence, fused POINT pipeline, no robust kernel). Any other
-configuration raises ``NotImplementedError`` naming the port slice of
-``ROADMAP.md`` that brings it.
+The port covers the RBC correspondence on the fused pipelines: POINT
+(``fused_point``) and PLANE / symmetric PLANE / GICP (``fused_gn``) with
+grid normals, each with or without a robust kernel and its adaptive scale.
+Any other configuration raises ``NotImplementedError`` naming the port slice
+of ``ROADMAP.md`` that brings it.
 """
 
 from __future__ import annotations
@@ -108,6 +109,19 @@ class ICPConfig:
         _check_ported(self)
 
     @property
+    def needs_normals(self) -> bool:
+        """True when the objective consumes fixed-surface normals (PLANE
+        point-to-plane; GICP plane-to-plane covariances)."""
+        return self.objective in (Objective.PLANE, Objective.GICP)
+
+    @property
+    def needs_index(self) -> bool:
+        """True when the pipeline builds an RBCIndex: RBC correspondence
+        always, and the normal-consuming objectives (it carries the
+        normals)."""
+        return self.correspondence is Correspondence.RBC or self.needs_normals
+
+    @property
     def rep_grid(self) -> tuple[int, int]:
         """(n_ry, n_rx) split of n_r: n_r = 2^p -> (2^(p//2), 2^(p - p//2))."""
         p = self.n_r.bit_length() - 1
@@ -121,14 +135,12 @@ def _check_ported(config: ICPConfig) -> None:
     missing = []
     if config.correspondence is not Correspondence.RBC:
         missing.append("correspondence=BRUTE (ROADMAP slice 4)")
-    if config.objective is not Objective.POINT:
-        missing.append(f"objective={config.objective.name} (ROADMAP slice 2)")
-    if config.robust is not RobustKernel.NONE:
-        missing.append(f"robust={config.robust.name} (ROADMAP slice 3)")
-    if config.robust_adaptive:
-        missing.append("robust_adaptive=True (ROADMAP slice 3)")
-    if not config.fused_point:
+    if config.objective is Objective.POINT and not config.fused_point:
         missing.append("fused_point=False (ROADMAP slice 3)")
+    if config.needs_normals and not config.fused_gn:
+        missing.append("fused_gn=False (ROADMAP slice 3)")
+    if config.needs_normals and config.normal_mode in ("knn", "knn_rbc"):
+        missing.append(f"normal_mode={config.normal_mode!r} (ROADMAP slice 5)")
     if missing:
         raise NotImplementedError(
             "icp_tpu_torch does not port " + ", ".join(missing) + " yet")
@@ -141,7 +153,11 @@ class ICPParams:
     alpha: photometric blend weight of the 8-D metric.
     c: float-safety scaling of deviations before the S-matrix products.
     angle_threshold_deg / translation_threshold: convergence thresholds.
-    gicp_epsilon, robust_delta: read by objectives the port has not yet.
+    gicp_epsilon: GICP disk-covariance thickness along the normal; read by
+      ``Objective.GICP`` only.
+    robust_delta: scale of the robust kernel in blended distance units (mm
+      for pure geometry); read when ``robust`` is not NONE and
+      ``robust_adaptive`` is off.
     """
 
     alpha: Any = 1e2

@@ -66,15 +66,45 @@ def test_rep_grid_rejects_non_power_of_two():
 
 @pytest.mark.parametrize("d, slice_no", [
     ({"correspondence": T.Correspondence.BRUTE}, 4),
-    ({"objective": T.Objective.PLANE}, 2),
-    ({"objective": T.Objective.GICP}, 2),
-    ({"robust": T.RobustKernel.HUBER}, 3),
-    ({"robust_adaptive": True}, 3),
+    ({"objective": T.Objective.PLANE, "fused_gn": False}, 3),
+    ({"objective": T.Objective.PLANE, "normal_mode": "knn"}, 5),
+    ({"objective": T.Objective.PLANE, "normal_mode": "knn_rbc"}, 5),
+    ({"robust": T.RobustKernel.TRIMMED, "fused_point": False}, 3),
     ({"fused_point": False}, 3),
 ])
 def test_unported_configs_raise_naming_their_slice(d, slice_no):
     with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
         T.ICPConfig(**d)
+
+
+# The configurations slice 2 ports (the reference's bench gates).
+SLICE2_DICTS = [
+    {"objective": "plane", "estimate_scale": False},
+    {"objective": "plane", "plane_symmetric": True, "estimate_scale": False},
+    {"objective": "gicp", "estimate_scale": False},
+    {"objective": "plane", "weighting": "regular", "robust": "trimmed",
+     "robust_adaptive": True, "estimate_scale": False},
+]
+
+
+@pytest.mark.parametrize("d", SLICE2_DICTS)
+def test_slice2_configs_construct_and_match_jax(d):
+    jc = _jax_config(d)
+    tc = config_from_dict(d)
+    assert tc == config_from_dict(dataclasses.asdict(jc))
+    for f in dataclasses.fields(tc):
+        jv, tv = getattr(jc, f.name), getattr(tc, f.name)
+        assert (jv.value == tv.value) if isinstance(jv, enum.Enum) else jv == tv, f.name
+    assert tc.needs_normals == jc.needs_normals
+    assert tc.needs_index == jc.needs_index
+
+
+@pytest.mark.parametrize("d", SLICE_DICTS[:2] + [{"robust": "huber"},
+                                                 {"robust": "tukey",
+                                                  "robust_adaptive": True}])
+def test_needs_normals_and_index_match_jax(d):
+    jc, tc = _jax_config(d), config_from_dict(d)
+    assert (tc.needs_normals, tc.needs_index) == (jc.needs_normals, jc.needs_index)
 
 
 def test_params_cross_as_numpy():

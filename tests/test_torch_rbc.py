@@ -81,6 +81,11 @@ def test_rbc_construct_matches_jax(rng, cap, with_ids):
                          rep_db_ids=_t(rep_ids) if with_ids else None)
     for f in dataclasses.fields(t):
         a, b = getattr(j, f.name), getattr(t, f.name)
+        if b is None:
+            # Without normals the port leaves the normal fields out; JAX
+            # fills normals/bin_normals with zeros and the GN fields with None.
+            assert a is None or not np.asarray(a).any(), f.name
+            continue
         if f.name == "layout":
             for x, y in zip(b[:3], a[:3]):
                 np.testing.assert_array_equal(x.numpy(), np.asarray(y))
@@ -96,10 +101,29 @@ def test_rbc_construct_matches_jax(rng, cap, with_ids):
 
 
 def test_rbc_construct_with_normals_is_slice_2(rng):
-    db = _db(rng, 64)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        TC.rbc_construct(_t(db), _t(db[:4]), ALPHA, 32,
-                         normals=torch.zeros(64, 3))
+    """Construction with fixed-surface normals (slice 2) against JAX: the
+    grouped normals and K7's 12-wide payload bitwise, the GN translation
+    tensor to rtol 1e-5; the POINT fields as without normals."""
+    db = _db(rng, 1024)
+    normals = rng.normal(size=(1024, 3)).astype(np.float32)
+    normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+    normals[7:19] = 0.0
+    rep_ids = rng.choice(np.arange(20, 1024), 16, replace=False).astype(np.int32)
+    j = JC.rbc_construct(jnp.asarray(db), jnp.asarray(db[rep_ids]),
+                         jnp.float32(ALPHA), 128, rep_db_ids=jnp.asarray(rep_ids),
+                         normals=jnp.asarray(normals))
+    t = TC.rbc_construct(_t(db), _t(db[rep_ids]), ALPHA, 128,
+                         rep_db_ids=_t(rep_ids), normals=_t(normals))
+    for name in ("normals", "bin_normals", "bins_vals12", "bins_centered",
+                 "bin_ids", "bin_mask"):
+        a, b = np.asarray(getattr(j, name)), getattr(t, name).numpy()
+        assert b.shape == a.shape, name
+        np.testing.assert_array_equal(b, a, err_msg=name)
+    assert t.bins_vals12.is_contiguous()
+    np.testing.assert_allclose(t.gn_w.numpy(), np.asarray(j.gn_w), rtol=1e-5,
+                               atol=1e-6)
+    # The payload's last lane is zero padding.
+    assert not t.bins_vals12[..., 11].any()
 
 
 @pytest.mark.parametrize("weighted", [True, False])
@@ -157,3 +181,23 @@ def test_get_landmarks_matches_jax(rng):
     cloud = rng.normal(size=(480, 640, 8)).astype(np.float32)
     want = np.asarray(JS.get_landmarks(jnp.asarray(cloud)))
     np.testing.assert_array_equal(TS.get_landmarks(_t(cloud)).numpy(), want)
+
+
+@pytest.mark.parametrize("with_normals", [True, False])
+def test_index_from_numpy_carries_normal_fields(rng, with_normals):
+    """A JAX index crosses whole: with normals its grouped normals, K7's
+    payload and the GN translation tensor arrive as they are; without, the
+    JAX index's zero normals arrive as zeros and its None GN fields as None."""
+    db = _db(rng, 256)
+    normals = rng.normal(size=(256, 3)).astype(np.float32)
+    jidx = JC.rbc_construct(jnp.asarray(db), jnp.asarray(db[40:56]), jnp.float32(ALPHA),
+                            64, normals=jnp.asarray(normals) if with_normals else None)
+    tidx = index_from_numpy(jax.tree.map(np.asarray, jidx._asdict()))
+    for name in ("normals", "bin_normals", "bins_vals12", "gn_w"):
+        a, b = getattr(jidx, name), getattr(tidx, name)
+        if a is None:
+            assert b is None, name
+        else:
+            assert b.dtype == torch.float32, name
+            np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=name)
+    assert (tidx.bins_vals12 is not None) == with_normals

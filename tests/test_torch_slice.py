@@ -140,19 +140,26 @@ _HYGIENE = """
 import json, sys
 import numpy as np, torch
 import icp_tpu_torch as T
-from icp_tpu_torch.kernels import fused_step, native, table_build
+from icp_tpu_torch.kernels import fused_gn, fused_step, native, table_build
+from icp_tpu_torch.sensors import synthetic
 rng = np.random.default_rng(0)
 f = np.ones((256, 8), np.float32)
 f[:, :3] = rng.uniform(-300, 300, (256, 3)); f[:, 2] += 1500
-st = T.register(torch.from_numpy(f), torch.from_numpy(f.copy()), T.ICPParams(),
-                T.ICPConfig(m=256, n_r=16))
+ks = []
+for cfg in (T.ICPConfig(m=256, n_r=16),
+            T.ICPConfig(m=256, n_r=16, robust=T.RobustKernel.HUBER, robust_adaptive=True),
+            T.ICPConfig(m=256, n_r=16, objective=T.Objective.GICP, estimate_scale=False)):
+    st = T.register(torch.from_numpy(f), torch.from_numpy(f.copy()), T.ICPParams(), cfg)
+    ks.append(int(st.k))
+synthetic.render(synthetic.wall_scene(), synthetic.CameraPose.identity())
 print(json.dumps({
-    "k": int(st.k),
+    "k": min(ks),
     "modules": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "icp_tpu")),
     "tf32": [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32],
     "precision": torch.get_float32_matmul_precision(),
     "launches": [fused_step.rep_assign_counts.launches, table_build.bin_table.launches,
-                 fused_step.bin_point_moments.launches],
+                 fused_step.bin_point_moments.launches, fused_step.bin_min_dists.launches,
+                 fused_gn.bin_gn_moments.launches],
     "loader": native.load_library.cache_info().currsize,
 }))
 """
@@ -176,5 +183,5 @@ def test_import_turns_tf32_off(hygiene):
 
 
 def test_cpu_run_never_launches_or_loads_kernels(hygiene):
-    assert hygiene["launches"] == [0, 0, 0]
+    assert hygiene["launches"] == [0, 0, 0, 0, 0]
     assert hygiene["loader"] == 0

@@ -42,12 +42,33 @@ landmarks made by icp_tpu_torch.sensors:
 4b. The marginal ms per iteration of PLANE and GICP, and K4, K7 and robust
     K3 against their twins.
 
+Slices 3 and 4 (the unfused per-pair pipeline: RBC grouped search with K5,
+BRUTE with K6, and K1′) add:
+
+2c. K1′ rid bitwise equal to its twin and to K1's; K5 on the tables the
+    unfused step passes it (taken from icp_step itself) on the synthetic
+    flagship pair (V = 8), on the rendered pair with normals (V = 12) and
+    at n_r = 16 (cb = 2048): scores and payloads bitwise; K6 on the
+    16384 x 16384 BRUTE step: every index and score bitwise.
+2d. K2 at the 16x layout (262144 rows, 2048 bins, cap 256, d = 8 and 11),
+    the shape of the windowed TPU variant, bitwise against its twin.
+3c. BRUTE POINT on the synthetic pair (seeds 0, 1, 2) within 0.05 mm and
+    0.005 deg; BRUTE PLANE and the unfused PLANE, plane_sym, GICP and
+    robust gates within 1.0 mm and 0.05 deg; the two-phase POINT step
+    (rbc_point_assign, K1′) equal to the K1 step; BRUTE POINT (4096
+    landmarks) and unfused PLANE on the card against the CPU twins; the
+    fused step against the unfused step on the card (q and qk within 1e-5,
+    tk within 0.05 mm); each registration launched its kernels >= k times.
+4c. The marginal ms per iteration of BRUTE POINT and unfused PLANE, and
+    K1′, K5, K6 and K2 at 16x against their twins.
+
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -114,6 +135,36 @@ def _rel_err(got, want) -> tuple[float, float]:
     return float((got - want).abs().max()), float(want.abs().max())
 
 
+def _capture(module, name: str, call):
+    """The (args, kwargs) of the first call that ``call()`` makes to
+    ``module.name``: the tensors the main path hands a kernel's wrapper."""
+    orig = getattr(module, name)
+    seen = []
+
+    def spy(*args, **kwargs):
+        seen.append((args, kwargs))
+        return orig(*args, **kwargs)
+
+    setattr(module, name, spy)
+    try:
+        call()
+    finally:
+        setattr(module, name, orig)
+    torch.cuda.synchronize()
+    return seen[0]
+
+
+def _bitwise(got, want) -> bool:
+    return torch.equal(got.contiguous().view(torch.int32),
+                       want.contiguous().view(torch.int32))
+
+
+def _finite_err(got, want) -> float:
+    """max|got - want| over the entries where both are finite."""
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    return float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
 def _cuda_ms(fn, reps: int = 20) -> float:
     """Mean device ms of one call of ``fn`` over ``reps`` back-to-back calls.
 
@@ -142,18 +193,23 @@ def main() -> None:
                          "this script needs an NVIDIA GPU")
     sys.path.insert(0, str(ROOT))
     from __graft_entry__ import _synthetic_pair
-    from icp_tpu_torch import (ICPConfig, ICPParams, Objective, RobustKernel,
-                               Weighting, register)
+    from icp_tpu_torch import (Correspondence, ICPConfig, ICPParams, Objective,
+                               RobustKernel, Weighting, icp_step, register)
     from icp_tpu_torch.icp.quaternion import qrotate
     from icp_tpu_torch.icp.run import build_index
     from icp_tpu_torch.icp.state import identity_state
+    from icp_tpu_torch.kernels import bin_search as bs
+    from icp_tpu_torch.kernels import brute_nn as bn
     from icp_tpu_torch.kernels import fused_gn as fg
     from icp_tpu_torch.kernels import fused_step as fs
     from icp_tpu_torch.kernels import native
     from icp_tpu_torch.kernels import table_build as tb
+    from icp_tpu_torch.ops import distance as distance_mod
     from icp_tpu_torch.ops.moments import masked_median
     from icp_tpu_torch.ops.normals import normals_for
+    from icp_tpu_torch.ops.sampling import sample_representative_indices
     from icp_tpu_torch.rbc import grouping
+    from icp_tpu_torch.rbc import search as search_mod
 
     dev = torch.device("cuda", 0)
 
@@ -307,27 +363,108 @@ def main() -> None:
         if not err <= 1e-4 * scale:
             raise AssertionError(f"K3 {robust} disagrees with its twin")
 
+    # ---- 2c. Slices 3-4: K1′, K5 and K6 against their twins ----------------
+    rid1 = fs.rep_assign(moving, C, srow)
+    rid1_t = fs.rep_assign_ref(moving, C, srow)
+    torch.cuda.synchronize()
+    print(f"K1' rep_assign: rid bitwise equal to its twin: {torch.equal(rid1, rid1_t)}, "
+          f"to K1's: {torch.equal(rid1, rid_k)}", flush=True)
+    if not (torch.equal(rid1, rid1_t) and torch.equal(rid1, rid_k)):
+        raise AssertionError("K1' rid differs from its twin or from K1's")
+
+    prm_d = params.to(dev)
+    cfg_u = ICPConfig(fused_point=False)
+    cfg_pu = ICPConfig(objective=Objective.PLANE, estimate_scale=False, fused_gn=False)
+    cfg_16 = ICPConfig(n_r=16, fused_point=False)
+    index_16 = build_index(fixed, prm_d, cfg_16)
+    k5_cases = {  # name -> the arguments the unfused step hands K5
+        "V=8 flagship": _capture(search_mod, "bin_search", lambda: icp_step(
+            st0, moving, index, prm_d, cfg_u))[0],
+        "V=12 rendered": _capture(search_mod, "bin_search", lambda: icp_step(
+            st0, lb_d, index_p, prm_d, cfg_pu))[0],
+        f"V=8 n_r=16 cb={cfg_16.bin_capacity}": _capture(
+            search_mod, "bin_search", lambda: icp_step(st0, moving, index_16, prm_d,
+                                                       cfg_16))[0],
+    }
+    k5_err = 0.0
+    for name, a in k5_cases.items():
+        best_k, matched_k = bs.bin_search(*a)
+        best_t, matched_t = bs.bin_search_ref(*a)
+        torch.cuda.synchronize()
+        ok = _bitwise(best_k, best_t) and _bitwise(matched_k, matched_t)
+        k5_err = max(k5_err, _finite_err(best_k, best_t), _finite_err(matched_k, matched_t))
+        print(f"K5 bin_search {name}: qg_w {tuple(a[0].shape)}, bins {tuple(a[1].shape)}, "
+              f"payload {tuple(a[3].shape)}; {int(torch.isinf(best_t).sum())} +inf "
+              f"slots; scores and payloads bitwise: {ok}", flush=True)
+        if not ok:
+            raise AssertionError(f"K5 {name} differs from its twin")
+
+    cfg_b = ICPConfig(correspondence=Correspondence.BRUTE)
+    k6_args = _capture(distance_mod, "brute_nn", lambda: icp_step(
+        st0, moving, fixed, prm_d, cfg_b))[0]
+    idx_k, score_k = bn.brute_nn(*k6_args)
+    idx_t, score_t = bn.brute_nn_ref(*k6_args)
+    torch.cuda.synchronize()
+    same_idx = int((idx_k == idx_t).sum())
+    k6_err = _finite_err(score_k, score_t)
+    print(f"K6 brute_nn {M}x{k6_args[1].shape[0]}: idx equal on {same_idx} of "
+          f"{idx_k.numel()} queries, scores bitwise: {_bitwise(score_k, score_t)}",
+          flush=True)
+    if not (same_idx == idx_k.numel() and _bitwise(score_k, score_t)):
+        raise AssertionError("K6 differs from its twin")
+
+    # ---- 2d. K2 at the 16x layout (the windowed TPU variant's shape) ---------
+    m16, n_r16, cap16 = 262144, 2048, 256
+    f16_np, m16_np = _synthetic_pair(m16, seed=0)
+    f16, mv16 = torch.from_numpy(f16_np).to(dev), torch.from_numpy(m16_np).to(dev)
+    reps16 = f16[sample_representative_indices(
+        m16, n_r16, ICPConfig(m=m16, n_r=n_r16).rep_grid, device=dev).long()]
+    C16, srow16 = fs.prep_rep_assign(reps16, alpha, G, b_row)
+    rid16, counts16 = fs.rep_assign_counts(mv16, C16.contiguous(), srow16)
+    sidx16, _, offsets16, _ = grouping.bin_sort_layout(rid16, n_r16, cap16, counts=counts16)
+    rows16 = torch.cat([mv16, normals_for(mv16, "auto")], dim=1)
+    k2x_args = {}
+    for d in (8, 11):
+        sorted16 = torch.index_select(rows16[:, :d].contiguous(), 0, sidx16).contiguous()
+        k2x_args[d] = (sorted16, offsets16)
+        got = tb.bin_table(sorted16, offsets16, capacity=cap16)
+        want = tb.bin_table_ref(sorted16, offsets16, capacity=cap16)
+        torch.cuda.synchronize()
+        print(f"K2 bin_table 16x ({m16} rows, {n_r16} bins, cap {cap16}, d {d}; bins over "
+              f"capacity {int((counts16 > cap16).sum())}, empty {int((counts16 == 0).sum())}):"
+              f" bitwise equal to its twin: {_bitwise(got, want)}", flush=True)
+        if not _bitwise(got, want):
+            raise AssertionError(f"K2 at 16x, d {d}, differs from its twin")
+    del f16, mv16, rows16
+
     # ---- 3. The slice: three flagship registrations ------------------------
     counters = {"rep_assign_counts": fs.rep_assign_counts,
+                "rep_assign": fs.rep_assign,
                 "bin_table": tb.bin_table,
                 "bin_point_moments": fs.bin_point_moments,
                 "bin_min_dists": fs.bin_min_dists,
+                "bin_search": bs.bin_search,
+                "brute_nn": bn.brute_nn,
                 "bin_gn_moments": fg.bin_gn_moments}
     launches = dict.fromkeys(counters, 0)
 
-    def drive(fixed_t, moving_t, prm, config):
-        """One registration on the main path: every count set to 0 just
-        before it and read just after it."""
+    def drive_call(call):
+        """One call on the main path: every count set to 0 just before it
+        and read just after it."""
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        state = register(fixed_t, moving_t, prm, config)
+        out = call()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         ran = {name: fn.launches for name, fn in counters.items()}
         for name, n in ran.items():
             launches[name] += n
-        return state, wall, ran
+        return out, wall, ran
+
+    def drive(fixed_t, moving_t, prm, config):
+        """One registration on the main path."""
+        return drive_call(lambda: register(fixed_t, moving_t, prm, config))
 
     def require_launched(ran, names, k, what):
         for name in names:
@@ -405,10 +542,6 @@ def main() -> None:
         raise AssertionError("POINT + HUBER: registration off the ground truth")
     require_launched(ran, ("bin_point_moments", "bin_min_dists"), k, "POINT + HUBER")
 
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"{name} never launched on the main path")
-
     before = {name: fn.launches for name, fn in counters.items()}
     st_cpu = register(la, lb, params, gates["plane"][0])
     if any(fn.launches != before[name] for name, fn in counters.items()):
@@ -421,48 +554,175 @@ def main() -> None:
     if not (dt <= 0.05 and dang <= 0.005):
         raise AssertionError("PLANE card and CPU registrations disagree")
 
+    # ---- 3c. Slices 3-4: BRUTE and the unfused pipeline --------------------
+    for seed in (0, 1, 2):
+        f_np, m_np = _synthetic_pair(M, seed=seed)
+        st, wall, ran = drive(torch.from_numpy(f_np).to(dev),
+                              torch.from_numpy(m_np).to(dev), params, cfg_b)
+        k = int(st.k)
+        t_err, a_err = _errors(st)
+        print(f"BRUTE POINT seed {seed} on {torch.cuda.get_device_name(0)}: k={k} "
+              f"t_err={t_err:.6f} mm a_err={a_err:.7f} deg wall={wall:.3f} s "
+              f"launches={ran}", flush=True)
+        if not (t_err < 0.05 and a_err < 0.005):
+            raise AssertionError(f"BRUTE seed {seed}: registration off the ground truth")
+        require_launched(ran, ("brute_nn",), k, f"BRUTE seed {seed}")
+
+    unfused_gates = {
+        "brute_plane": (ICPConfig(objective=Objective.PLANE, estimate_scale=False,
+                                  correspondence=Correspondence.BRUTE), lb_d),
+        "plane_unfused": (cfg_pu, lb_d),
+        "plane_sym_unfused": (ICPConfig(objective=Objective.PLANE, plane_symmetric=True,
+                                        estimate_scale=False, fused_gn=False), lb_d),
+        "gicp_unfused": (ICPConfig(objective=Objective.GICP, estimate_scale=False,
+                                   fused_gn=False), lb_d),
+        "robust_unfused": (ICPConfig(objective=Objective.PLANE,
+                                     weighting=Weighting.REGULAR,
+                                     robust=RobustKernel.TRIMMED, robust_adaptive=True,
+                                     estimate_scale=False, fused_gn=False), dirty_d),
+    }
+    for name, (config, moving_t) in unfused_gates.items():
+        st, wall, ran = drive(fa_d, moving_t, params, config)
+        k = int(st.k)
+        t_err, a_err = _errors(st, Q_GT_R, T_GT_R)
+        gate_states[name] = st
+        print(f"gate {name} on {torch.cuda.get_device_name(0)}: k={k} "
+              f"t_err={t_err:.6f} mm a_err={a_err:.7f} deg wall={wall:.3f} s "
+              f"launches={ran}", flush=True)
+        if not (t_err < T_GATE and a_err < A_GATE):
+            raise AssertionError(f"gate {name}: registration off the ground truth")
+        need = (("brute_nn",) if config.correspondence is Correspondence.BRUTE
+                else ("bin_table", "bin_search"))
+        require_launched(ran, need, k, f"gate {name}")
+
+    # The two-phase POINT step at seed 0's registered state: K1′ assigns,
+    # the caller groups and reduces; the moments equal the K1 path's.
+    st = results[0]
+
+    def two_phase():
+        rid, G2, b2 = search_mod.rbc_point_assign(index, moving, st.q, st.t, st.s, alpha)
+        gl = grouping.group_rows_by_bin(rid, N_R, cfg.query_capacity, (moving,))
+        return search_mod.rbc_point_moments_grouped(
+            index, gl.grouped[0], gl.valid.to(torch.float32), G2, b2, alpha,
+            prm_d.c, weighted=True)
+
+    got, _, ran = drive_call(two_phase)
+    rid, counts2, G2, b2 = search_mod.rbc_point_assign_counts(index, moving, st.q, st.t,
+                                                              st.s, alpha)
+    gl = grouping.group_rows_by_bin(rid, N_R, cfg.query_capacity, (moving,), counts=counts2)
+    want = search_mod.rbc_point_moments_grouped(
+        index, gl.grouped[0], gl.valid.to(torch.float32), G2, b2, alpha, prm_d.c,
+        weighted=True)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"two-phase POINT step (rbc_point_assign, K1'): moments equal to the K1 "
+          f"path's: {same}; launches={ran}", flush=True)
+    if not same:
+        raise AssertionError("the K1' two-phase step differs from the K1 step")
+    require_launched(ran, ("rep_assign", "bin_table", "bin_point_moments"), 1, "two-phase")
+
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{name} never launched on the main path")
+
+    # Card against the CPU twins: BRUTE POINT on 4096 landmarks (the CPU
+    # twin of K6 sweeps m x m per step), unfused PLANE at full size.
+    f_np, m_np = _synthetic_pair(4096, seed=0)
+    cfg_b4 = ICPConfig(m=4096, n_r=64, correspondence=Correspondence.BRUTE)
+    cmp_cases = {
+        "BRUTE POINT 4096": (torch.from_numpy(f_np), torch.from_numpy(m_np), cfg_b4,
+                             0.01, 0.001),
+        "unfused PLANE": (la, lb, cfg_pu, 0.05, 0.005),
+    }
+    for name, (f_c, m_c, config, t_bound, a_bound) in cmp_cases.items():
+        st_gpu = register(f_c.to(dev), m_c.to(dev), params, config)
+        before = {n: fn.launches for n, fn in counters.items()}
+        t0 = time.perf_counter()
+        st_cpu = register(f_c, m_c, params, config)
+        cpu_s = time.perf_counter() - t0
+        if any(fn.launches != before[n] for n, fn in counters.items()):
+            raise AssertionError("a CPU registration launched a kernel")
+        dt = float(np.linalg.norm(st_gpu.t.double().cpu().numpy() - st_cpu.t.double().numpy()))
+        dang = float(qangle_deg(qmul(st_gpu.q.cpu(), qconj(st_cpu.q))))
+        print(f"{name} card vs CPU twins: k {int(st_gpu.k)} vs {int(st_cpu.k)}, "
+              f"|dt|={dt:.6f} mm, dangle={dang:.7f} deg (CPU {cpu_s:.1f} s)", flush=True)
+        if not (dt <= t_bound and dang <= a_bound):
+            raise AssertionError(f"{name}: card and CPU registrations disagree")
+
+    # The fused step against the unfused step, on the card, from the
+    # identity (POINT: the synthetic pair; GN: the rendered pair).
+    fused_cmp = {
+        "point": (moving, index, ICPConfig(), cfg_u),
+        "plane": (lb_d, index_p, cfg_p, cfg_pu),
+    }
+    for name in ("plane_sym", "gicp", "robust"):
+        fused_cfg = gates[name][0]
+        fused_cmp[name] = (gates[name][1], index_p, fused_cfg,
+                           dataclasses.replace(fused_cfg, fused_gn=False))
+    for name, (moving_t, idx_t, fused_cfg, unfused_cfg) in fused_cmp.items():
+        mn = (normals_for(moving_t, "auto") if fused_cfg.needs_normals else None)
+        a = icp_step(st0, moving_t, idx_t, prm_d, fused_cfg, moving_normals=mn)
+        b = icp_step(st0, moving_t, idx_t, prm_d, unfused_cfg, moving_normals=mn)
+        dq = max(float((a.q - b.q).abs().max()), float((a.qk - b.qk).abs().max()))
+        dtk = float((a.tk - b.tk).abs().max())
+        print(f"fused vs unfused step {name} on the card: max|dq|={dq:.3e} (bound 1e-5), "
+              f"max|dtk|={dtk:.3e} mm (bound 0.05)", flush=True)
+        if not (dq <= 1e-5 and dtk <= 0.05):
+            raise AssertionError(f"fused and unfused {name} steps disagree")
+
     # ---- 4. Times (printed, not gated) ------------------------------------
     fast = ICPParams(alpha=ALPHA, angle_threshold_deg=0.0,
                      translation_threshold=0.0)
-    best = {40: float("inf"), 8: float("inf")}
-    for _ in range(ROUNDS):
-        for iters in (40, 8):
-            t0 = time.perf_counter()
-            st = register(fixed, moving, fast, ICPConfig(max_iterations=iters))
-            torch.cuda.synchronize()
-            best[iters] = min(best[iters], time.perf_counter() - t0)
-            if int(st.k) != iters:
-                raise AssertionError(f"k={int(st.k)} != {iters}")
-    per_iter = (best[40] - best[8]) / 32 * 1e3
-    print(f"marginal ms/iteration at {M}x{N_R}: {per_iter} "
-          f"(T40 {best[40] * 1e3} ms, T8 {best[8] * 1e3} ms, "
-          f"min of {ROUNDS} alternating rounds)", flush=True)
 
-    for objective in (Objective.PLANE, Objective.GICP):
+    def marginal_ms(fixed_t, moving_t, config, rounds):
+        """(marginal ms/iteration, T40 s, T8 s): the minimum of alternating
+        rounds of 40 and 8 iterations for each, then the difference / 32."""
         best = {40: float("inf"), 8: float("inf")}
-        for _ in range(3):
+        for _ in range(rounds):
             for iters in (40, 8):
                 t0 = time.perf_counter()
-                st = register(fa_d, lb_d, fast, ICPConfig(
-                    objective=objective, estimate_scale=False, max_iterations=iters))
+                st = register(fixed_t, moving_t, fast,
+                              dataclasses.replace(config, max_iterations=iters))
                 torch.cuda.synchronize()
                 best[iters] = min(best[iters], time.perf_counter() - t0)
                 if int(st.k) != iters:
                     raise AssertionError(f"k={int(st.k)} != {iters}")
+        return (best[40] - best[8]) / 32 * 1e3, best[40], best[8]
+
+    per_iter, t40, t8 = marginal_ms(fixed, moving, ICPConfig(), ROUNDS)
+    print(f"marginal ms/iteration at {M}x{N_R}: {per_iter} "
+          f"(T40 {t40 * 1e3} ms, T8 {t8 * 1e3} ms, "
+          f"min of {ROUNDS} alternating rounds)", flush=True)
+
+    for objective in (Objective.PLANE, Objective.GICP):
+        per_iter, t40, t8 = marginal_ms(fa_d, lb_d, ICPConfig(
+            objective=objective, estimate_scale=False), 3)
         print(f"{objective.name} marginal ms/iteration at {M}x{N_R} (rendered pair): "
-              f"{(best[40] - best[8]) / 32 * 1e3} (T40 {best[40] * 1e3} ms, "
-              f"T8 {best[8] * 1e3} ms, min of 3 alternating rounds)", flush=True)
+              f"{per_iter} (T40 {t40 * 1e3} ms, T8 {t8 * 1e3} ms, min of 3 "
+              f"alternating rounds)", flush=True)
+
+    # ---- 4c. Slices 3-4: BRUTE POINT and unfused PLANE, and their kernels ---
+    for name, (f_t, m_t, config) in {
+            "BRUTE POINT (synthetic pair)": (fixed, moving, cfg_b),
+            "unfused PLANE (rendered pair)": (fa_d, lb_d, cfg_pu)}.items():
+        per_iter, t40, t8 = marginal_ms(f_t, m_t, config, 3)
+        print(f"{name} marginal ms/iteration at {M}x{N_R}: {per_iter} (T40 "
+              f"{t40 * 1e3} ms, T8 {t8 * 1e3} ms, min of 3 alternating rounds)",
+              flush=True)
 
     table_args = (sorted_rows, offsets)
     pairs = {
         "rep_assign_counts": (lambda: fs.rep_assign_counts(moving, C, srow),
                               lambda: fs.rep_assign_counts_ref(moving, C, srow)),
+        "rep_assign": (lambda: fs.rep_assign(moving, C, srow),
+                       lambda: fs.rep_assign_ref(moving, C, srow)),
         "bin_table": (lambda: tb.bin_table(*table_args, capacity=cfg.query_capacity),
                       lambda: tb.bin_table_ref(*table_args, capacity=cfg.query_capacity)),
         "bin_point_moments": (lambda: fs.bin_point_moments(*k3_args, weighted=True),
                               lambda: fs.bin_point_moments_ref(*k3_args, weighted=True)),
         "bin_min_dists": (lambda: fs.bin_min_dists(*k4_args),
                           lambda: fs.bin_min_dists_ref(*k4_args)),
+        "brute_nn": (lambda: bn.brute_nn(*k6_args), lambda: bn.brute_nn_ref(*k6_args)),
     }
     for mode, (a, kw) in gn_args.items():
         pairs[f"bin_gn_moments {mode}"] = (
@@ -472,18 +732,34 @@ def main() -> None:
         pairs[f"bin_point_moments {robust}"] = (
             lambda a=a, kw=kw: fs.bin_point_moments(*a, **kw),
             lambda a=a, kw=kw: fs.bin_point_moments_ref(*a, **kw))
+    # The n_r = 16 case is printed apart: K5's row keeps the flagship shapes.
+    for case, a in k5_cases.items():
+        key = "bin_search@" if "n_r=16" in case else "bin_search "
+        pairs[key + case] = (lambda a=a: bs.bin_search(*a),
+                             lambda a=a: bs.bin_search_ref(*a))
+    # The 16x table is printed apart: the kernels line keeps K2's flagship row.
+    for d, (rows, starts) in k2x_args.items():
+        pairs[f"bin_table@16x d={d}"] = (
+            lambda rows=rows, starts=starts: tb.bin_table(rows, starts, capacity=cap16),
+            lambda rows=rows, starts=starts: tb.bin_table_ref(rows, starts, capacity=cap16))
+    # K6's twin sweeps the whole 16384 x 16384 set in 1024-query chunks: 5
+    # calls per timing instead of 20.
+    twin_reps = {"brute_nn": 5}
     times = {}
     for name, (kernel, twin) in pairs.items():
         k_ms, t_ms = float("inf"), float("inf")
         for _ in range(3):  # alternate kernel and twin; keep each minimum
             k_ms = min(k_ms, _cuda_ms(kernel))
-            t_ms = min(t_ms, _cuda_ms(twin))
+            t_ms = min(t_ms, _cuda_ms(twin, twin_reps.get(name, 20)))
         times[name] = (k_ms, t_ms)
         print(f"{name}: kernel {k_ms} ms, plain twin {t_ms} ms", flush=True)
 
     meta = {
         "rep_assign_counts": ("icp_tpu_torch/csrc/rep_assign_counts.cu",
                               "icp_tpu/kernels/fused_step.py:372", k1_err),
+        "rep_assign": ("icp_tpu_torch/csrc/rep_assign_counts.cu",
+                       "icp_tpu/kernels/fused_step.py:286",
+                       int((rid1 != rid1_t).sum())),
         "bin_table": ("icp_tpu_torch/csrc/bin_table.cu",
                       "icp_tpu/kernels/table_build.py:79", k2_err),
         "bin_point_moments": ("icp_tpu_torch/csrc/bin_point_moments.cu",
@@ -491,6 +767,10 @@ def main() -> None:
                               max(k3_err, k3r_err)),
         "bin_min_dists": ("icp_tpu_torch/csrc/bin_min_dists.cu",
                           "icp_tpu/kernels/fused_step.py:689", k4_err),
+        "bin_search": ("icp_tpu_torch/csrc/bin_search.cu",
+                       "icp_tpu/kernels/bin_search.py:115", k5_err),
+        "brute_nn": ("icp_tpu_torch/csrc/brute_nn.cu",
+                     "icp_tpu/kernels/brute_nn.py:69", k6_err),
         "bin_gn_moments": ("icp_tpu_torch/csrc/bin_gn_moments.cu",
                            "icp_tpu/kernels/fused_gn.py:318", k7_err),
     }

@@ -6,10 +6,10 @@ path runs hand-written CUDA kernels (``csrc/``, built with nvcc for sm_90a at
 the first CUDA call) on CUDA tensors and their plain PyTorch twins on CPU
 tensors. It never imports jax or icp_tpu.
 
-Ported so far: the default registration,
-``register(fixed8, moving8, ICPParams(), ICPConfig())`` (POINT objective,
-RBC correspondence, fused POINT pipeline, POWER/SVD/JACOBI rotation,
-WEIGHTED/REGULAR weighting).
+Ported so far: ``register(fixed8, moving8, params, config)`` for the POINT,
+PLANE, symmetric PLANE and GICP objectives with grid normals, on the fused
+and unfused RBC pipelines and on BRUTE correspondence, with POWER / SVD /
+JACOBI rotation, WEIGHTED / REGULAR weighting and the robust kernels.
 
 Geometry runs in full float32: importing the package disables TF32 for
 matrix products and cuDNN, since TF32 shows up as ~0.5% coordinate error and
@@ -32,11 +32,12 @@ from icp_tpu_torch.runtime.config import (  # noqa: E402
     Weighting,
 )
 from icp_tpu_torch.icp.state import ICPState, identity_state  # noqa: E402
-from icp_tpu_torch.icp.step import icp_step  # noqa: E402
-from icp_tpu_torch.icp.run import build_index, icp_run, register  # noqa: E402
+from icp_tpu_torch.icp.step import BruteTarget, icp_step  # noqa: E402
+from icp_tpu_torch.icp.run import build_index, build_target, icp_run, register  # noqa: E402
 from icp_tpu_torch.rbc.construct import RBCIndex, rbc_construct  # noqa: E402
 
 __all__ = [
+    "BruteTarget",
     "Correspondence",
     "ICPConfig",
     "ICPParams",
@@ -47,6 +48,7 @@ __all__ = [
     "RotationMode",
     "Weighting",
     "build_index",
+    "build_target",
     "icp_run",
     "icp_step",
     "identity_state",

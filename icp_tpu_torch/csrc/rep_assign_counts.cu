@@ -1,6 +1,8 @@
-// K1: transform + nearest representative + per-bin counts.
+// K1: transform + nearest representative + per-bin counts, and K1', the
+// same assignment without the counts.
 //
-// Replaces rep_assign_counts_pallas (icp_tpu/kernels/fused_step.py:372).
+// Replaces rep_assign_counts_pallas (icp_tpu/kernels/fused_step.py:372) and,
+// through the kCounts = false instance, rep_assign_pallas (:286).
 // For each raw moving row p (8 floats) it returns
 //   rid[q]   = argmin_r (srow[r] - 2 * dot3(p, C[:, r]))   (first minimum)
 //   counts[b] = #{q : rid[q] == b}                          (exact)
@@ -19,13 +21,15 @@
 // minimum, which is the first-minimum tie-break of the TPU kernel's
 // min + iota select. Counts go to a shared-memory histogram with integer
 // atomics and then to the global (n_r,) counts, zeroed by the wrapper:
-// integer atomics are exact and independent of order.
+// integer atomics are exact and independent of order. K1' is the same
+// template with the histogram compiled out, so its rid equals K1's bitwise.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
+template <bool kCounts>
 __global__ void __launch_bounds__(kThreads)
 rep_assign_counts_kernel(const float* __restrict__ moving8,
                          const float* __restrict__ C,
@@ -42,7 +46,7 @@ rep_assign_counts_kernel(const float* __restrict__ moving8,
   }
   for (int i = threadIdx.x; i < n_r; i += blockDim.x) {
     s_row[i] = srow[i];
-    hist[i] = 0;
+    if (kCounts) hist[i] = 0;
   }
   __syncthreads();
 
@@ -63,8 +67,9 @@ rep_assign_counts_kernel(const float* __restrict__ moving8,
       }
     }
     rid[q] = best_r;
-    atomicAdd(&hist[best_r], 1);
+    if (kCounts) atomicAdd(&hist[best_r], 1);
   }
+  if (!kCounts) return;
   __syncthreads();
   for (int i = threadIdx.x; i < n_r; i += blockDim.x) {
     const int c = hist[i];
@@ -72,23 +77,36 @@ rep_assign_counts_kernel(const float* __restrict__ moving8,
   }
 }
 
+template <bool kCounts>
+int launch(const float* moving8, const float* C, const float* srow, int m,
+           int n_r, int* rid, int* counts, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(n_r) * (17 * sizeof(float) + sizeof(int));
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rep_assign_counts_kernel<kCounts>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = (m + kThreads - 1) / kThreads;
+  if (blocks > 0) {
+    rep_assign_counts_kernel<kCounts><<<blocks, kThreads, smem, stream>>>(
+        moving8, C, srow, m, n_r, rid, counts);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int icp_rep_assign_counts(const float* moving8, const float* C,
                                      const float* srow, int m, int n_r,
                                      int* rid, int* counts, void* stream) {
-  const size_t smem = static_cast<size_t>(n_r) * (17 * sizeof(float) + sizeof(int));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        rep_assign_counts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int blocks = (m + kThreads - 1) / kThreads;
-  if (blocks > 0) {
-    rep_assign_counts_kernel<<<blocks, kThreads, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-        moving8, C, srow, m, n_r, rid, counts);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<true>(moving8, C, srow, m, n_r, rid, counts,
+                      static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int icp_rep_assign(const float* moving8, const float* C,
+                              const float* srow, int m, int n_r, int* rid,
+                              void* stream) {
+  return launch<false>(moving8, C, srow, m, n_r, rid, nullptr,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -18,11 +18,11 @@ import torch
 
 from icp_tpu_torch.icp.quaternion import qangle_deg
 from icp_tpu_torch.icp.state import ICPState, identity_state
-from icp_tpu_torch.icp.step import gn_mode, icp_step
+from icp_tpu_torch.icp.step import BruteTarget, Target, gn_mode, icp_step
 from icp_tpu_torch.ops.normals import normals_for
 from icp_tpu_torch.ops.sampling import sample_representative_indices
 from icp_tpu_torch.rbc.construct import RBCIndex, rbc_construct
-from icp_tpu_torch.runtime.config import ICPConfig, ICPParams
+from icp_tpu_torch.runtime.config import Correspondence, ICPConfig, ICPParams
 
 CHUNK = 8  # steps between host reads of the loop condition
 
@@ -42,11 +42,12 @@ def _select(take: torch.Tensor, new: ICPState, old: ICPState) -> ICPState:
         for f in dataclasses.fields(ICPState)})
 
 
-def icp_run(moving8: torch.Tensor, target: RBCIndex, params: ICPParams,
+def icp_run(moving8: torch.Tensor, target: Target, params: ICPParams,
             config: ICPConfig, init: ICPState | None = None) -> ICPState:
     """Run ICP to convergence: at least one iteration; stop after
     ``max_iterations`` in total or when the last increment is below both
-    thresholds."""
+    thresholds. ``target`` is what :func:`build_target` returns for
+    ``config``."""
     dev = moving8.device
     params = params.to(dev)
     state = identity_state(moving8.dtype, dev) if init is None else init
@@ -86,10 +87,23 @@ def build_index(fixed8: torch.Tensor, params: ICPParams,
                          rep_db_ids=rep_ids, normals=normals)
 
 
+def build_target(fixed8: torch.Tensor, params: ICPParams,
+                 config: ICPConfig) -> Target:
+    """The search target of ``config``: an RBC index (RBC), the fixed
+    landmarks with their normals (BRUTE with PLANE / GICP), or the bare
+    fixed landmarks (BRUTE POINT)."""
+    if config.correspondence is Correspondence.RBC:
+        return build_index(fixed8, params, config)
+    if config.needs_normals:
+        return BruteTarget(db=fixed8, normals=normals_for(fixed8, config.normal_mode))
+    return fixed8
+
+
 def register(fixed8: torch.Tensor, moving8: torch.Tensor,
              params: ICPParams, config: ICPConfig) -> ICPState:
-    """Full registration: build the RBC index over the fixed landmarks, run
-    ICP to convergence and return the accumulated transform.
+    """Full registration: build the search target over the fixed landmarks
+    (:func:`build_target`), run ICP to convergence and return the
+    accumulated transform.
 
     Args:
       fixed8, moving8: (m, 8) float32 landmarks on one device.
@@ -102,4 +116,4 @@ def register(fixed8: torch.Tensor, moving8: torch.Tensor,
                              f"{tuple(x.shape)} {x.dtype}")
     fixed8, moving8 = fixed8.contiguous(), moving8.contiguous()
     params = params.to(fixed8.device)
-    return icp_run(moving8, build_index(fixed8, params, config), params, config)
+    return icp_run(moving8, build_target(fixed8, params, config), params, config)

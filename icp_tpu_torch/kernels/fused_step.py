@@ -7,7 +7,8 @@ Two kernels carry each iteration:
    centering fold into an (8, n_r) matrix C and an (n_r,) row srow
    (:func:`prep_rep_assign`), so the nearest representative of a raw moving
    row p is ``argmin_r(srow - 2 p @ C)`` (first minimum on ties), and the
-   per-bin counts equal ``bincount(rid)`` exactly.
+   per-bin counts equal ``bincount(rid)`` exactly. :func:`rep_assign`
+   (K1′, the same source) returns rid alone.
 2. :func:`bin_point_moments` (K3, ``csrc/bin_point_moments.cu``): per bin,
    transform and center the grouped queries, search the rep-centered bin,
    weight the match (reference weight times the optional robust factor),
@@ -113,16 +114,55 @@ def prep_rep_assign(reps: torch.Tensor, alpha, G: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# K1: transform + nearest representative + per-bin counts
+# K1: transform + nearest representative + per-bin counts (K1′: no counts)
 # ---------------------------------------------------------------------------
+
+
+def rep_assign_ref(moving8: torch.Tensor, C: torch.Tensor,
+                   srow: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`rep_assign`: rid (m,) int32."""
+    scores = srow - 2.0 * dot3(moving8[:, None, :], C.T[None, :, :])
+    return torch.argmin(scores, dim=1).to(torch.int32)
+
+
+def rep_assign(moving8: torch.Tensor, C: torch.Tensor,
+               srow: torch.Tensor) -> torch.Tensor:
+    """Fused transform + nearest representative; K1′, replacing
+    ``icp_tpu.kernels.fused_step.rep_assign_pallas``: K1's kernel with the
+    counts compiled out, so its rid equals :func:`rep_assign_counts`'s.
+
+    Args:
+      moving8: (m, 8) float32 RAW moving rows (the transform is in C).
+      C, srow: from :func:`prep_rep_assign`.
+    Returns:
+      rid (m,) int32, the first-minimum representative of each row.
+    """
+    if moving8.device.type == "cpu":
+        return rep_assign_ref(moving8, C, srow)
+    native.require_cuda(moving8, "moving8")
+    dev = moving8.device
+    m = moving8.shape[0]
+    n_r = C.shape[1]
+    native.require(moving8, "moving8", (m, 8), torch.float32, dev)
+    native.require(C, "C", (8, n_r), torch.float32, dev)
+    native.require(srow, "srow", (1, n_r), torch.float32, dev)
+    rid = torch.empty((m,), dtype=torch.int32, device=dev)
+    lib = native.load_library()
+    native.check(lib.icp_rep_assign(
+        moving8.data_ptr(), C.data_ptr(), srow.data_ptr(), m, n_r,
+        rid.data_ptr(), native.stream_ptr(dev)), "icp_rep_assign")
+    rep_assign.launches += 1
+    return rid
+
+
+rep_assign.launches = 0
 
 
 def rep_assign_counts_ref(moving8: torch.Tensor, C: torch.Tensor,
                           srow: torch.Tensor):
     """Plain twin of :func:`rep_assign_counts`: (rid (m,) int32,
     counts (n_r,) int32)."""
-    scores = srow - 2.0 * dot3(moving8[:, None, :], C.T[None, :, :])
-    rid = torch.argmin(scores, dim=1).to(torch.int32)
+    rid = rep_assign_ref(moving8, C, srow)
     counts = torch.bincount(rid, minlength=C.shape[1]).to(torch.int32)
     return rid, counts
 

@@ -40,6 +40,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     # moving8, C, srow, m, n_r, rid, counts, stream
     "icp_rep_assign_counts": [_P, _P, _P, _I, _I, _P, _P, _P],
+    # moving8, C, srow, m, n_r, rid, stream
+    "icp_rep_assign": [_P, _P, _P, _I, _I, _P, _P],
     # sorted_rows, starts, m, d, n_r, capacity, out, stream
     "icp_bin_table": [_P, _P, _I, _I, _I, _I, _P, _P],
     # mg, qvalid, reps, bins_c, sq_b_masked, G, b_row, scal [alpha, delta],
@@ -55,6 +57,11 @@ SIGNATURES = {
     # stream
     "icp_bin_gn_moments": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # qg_w, bins_c, sq_b_masked, vals, n_r, cq, cb, v, best_score, matched,
+    # stream
+    "icp_bin_search": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # qw, db, sq_db, m, n, idx, score, stream
+    "icp_brute_nn": [_P, _P, _P, _I, _I, _P, _P, _P],
 }
 
 build_info: dict = {}  # filled by load_library(): path, seconds, log

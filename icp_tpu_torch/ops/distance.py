@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from icp_tpu_torch.kernels.brute_nn import brute_nn
+
 
 def metric_weights(alpha, dtype=torch.float32, device=None) -> torch.Tensor:
     """Per-lane weights [1, 1, 1, 0, alpha, alpha, alpha, 0] of the metric."""
@@ -39,3 +41,31 @@ def pairwise_sq_dists(a: torch.Tensor, b: torch.Tensor, alpha) -> torch.Tensor:
     cross = aw @ b.T
     d2 = sq_a[:, None] + sq_b[None, :] - 2.0 * cross
     return torch.clamp(d2, min=0.0)
+
+
+def point_sq_dists(a: torch.Tensor, b: torch.Tensor, alpha) -> torch.Tensor:
+    """(n,) blended squared distances between aligned (n, 8) point pairs."""
+    w = metric_weights(alpha, a.dtype, a.device)
+    d = a - b
+    return torch.sum(w * d * d, dim=-1)
+
+
+def nearest_neighbor_brute(queries: torch.Tensor, database: torch.Tensor, alpha):
+    """Exact nearest neighbour of each (m, 8) query in the (n, 8) database,
+    the reference's exact-NN baseline (config 1): (nn_idx (m,) int32,
+    nn_dist (m,) blended squared distance).
+
+    Both sets are centered on the database centroid (distance-invariant,
+    and it keeps the float32 quadratic expansion at offset scale); K6
+    (:func:`icp_tpu_torch.kernels.brute_nn.brute_nn`) then finds the
+    minimum of sq_db - 2 q_w . db, and |q|^2_w is added to the winner only.
+    """
+    center = torch.mean(database, dim=0)
+    q = queries - center
+    db = (database - center).contiguous()
+    w8 = metric_weights(alpha, q.dtype, q.device)
+    qw = (q * w8).contiguous()
+    sq_db = torch.sum((db * w8) * db, dim=-1)
+    nn_idx, best = brute_nn(qw, db, sq_db)
+    sq_q = torch.sum(qw * q, dim=-1)
+    return nn_idx, torch.clamp(best + sq_q, min=0.0)

@@ -1,11 +1,13 @@
-"""Residual weights and the robust M-estimator scale (port of the weighting
-part of ``icp_tpu.ops.moments``).
+"""Residual weights, the robust M-estimator scale and the per-pair moments
+of the unfused pipeline (port of ``icp_tpu.ops.moments``).
 
 :func:`compute_weights` is the reference's ``icpComputeReduceWeights``;
 :func:`robust_factor` the IRLS factor of the optional robust kernel (it
 multiplies into the reference weight inside K3, K7 and their twins);
 :func:`adaptive_robust_delta` derives the robust scale from the median
-residual of the current iteration, on the device.
+residual of the current iteration, on the device. :func:`centroids`,
+:func:`deviations` and :func:`s_matrix` are the POINT tail of the unfused
+step (the fused path computes the same sums inside K3).
 """
 
 from __future__ import annotations
@@ -72,3 +74,92 @@ def adaptive_robust_delta(d2: torch.Tensor, mask: torch.Tensor | None,
     pairs, floored at 1e-3 so an all-zero residual set keeps its weights."""
     med_r = torch.sqrt(torch.clamp(masked_median(d2, mask), min=0.0))
     return torch.clamp(_ADAPTIVE_K[kind] * med_r, min=1e-3)
+
+
+def masked_weight_sum(weights: torch.Tensor,
+                      mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Sum of the weights, masked entries counting 0."""
+    return torch.sum(_masked(weights, mask))
+
+
+def _masked(weights: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    return weights if mask is None else torch.where(
+        mask, weights, torch.zeros_like(weights))
+
+
+def centroids(fixed8: torch.Tensor, moving8: torch.Tensor,
+              weights: torch.Tensor | None = None,
+              sum_w: torch.Tensor | None = None,
+              mask: torch.Tensor | None = None):
+    """xyz centroids (mean_f (3,), mean_m (3,)) of the matched fixed and the
+    moving points.
+
+    Without weights the reference's ``icpMean`` (mean over the valid rows,
+    at least 1); with weights ``icpMean_Weighted``, sum (w_i / sum_w) x_i,
+    where ``sum_w`` is the precomputed sum of the masked weights.
+    """
+    f = fixed8[..., :3]
+    m = moving8[..., :3]
+    if weights is None:
+        if mask is None:
+            return torch.mean(f, dim=0), torch.mean(m, dim=0)
+        valid = mask.to(f.dtype)
+        n = torch.clamp(torch.sum(valid), min=1.0)
+        return (torch.sum(f * valid[:, None], dim=0) / n,
+                torch.sum(m * valid[:, None], dim=0) / n)
+    w = _masked(weights, mask)
+    # Fully-masked-frame guard (sensor dropout): 0/0 would put a NaN into
+    # the state that poisons every following iteration.
+    safe_w = torch.where(sum_w > 0, sum_w, torch.ones_like(sum_w))
+    wn = (w / safe_w)[:, None]
+    return torch.sum(f * wn, dim=0), torch.sum(m * wn, dim=0)
+
+
+def centroid_partials(fixed8: torch.Tensor, moving8: torch.Tensor,
+                      weights: torch.Tensor | None = None,
+                      mask: torch.Tensor | None = None):
+    """(sum_f (3,), sum_m (3,), denom): partial sums whose ratio over all
+    shards is the centroid of :func:`centroids`."""
+    f = fixed8[..., :3]
+    m = moving8[..., :3]
+    if weights is None:
+        if mask is None:
+            denom = torch.full((), f.shape[0], dtype=f.dtype, device=f.device)
+            return torch.sum(f, dim=0), torch.sum(m, dim=0), denom
+        w = mask.to(f.dtype)
+    else:
+        w = _masked(weights, mask)
+    return (torch.sum(f * w[:, None], dim=0), torch.sum(m * w[:, None], dim=0),
+            torch.sum(w))
+
+
+def deviations(points8: torch.Tensor, mean3: torch.Tensor) -> torch.Tensor:
+    """xyz deviations from a centroid (``icpSubtractMean``)."""
+    return points8[..., :3] - mean3
+
+
+def s_matrix(dev_m: torch.Tensor, dev_f: torch.Tensor, c,
+             weights: torch.Tensor | None = None,
+             mask: torch.Tensor | None = None) -> torch.Tensor:
+    """The (11,) S vector of the rotation solve (``icpSijProducts``):
+    S[3i+j] = sum_k w_k (c m_k,i)(c f_k,j), S[9] = sum_k w_k |c f_k|^2 and
+    S[10] = sum_k w_k |c m_k|^2; ``c`` keeps mm-scale products in float32
+    range and cancels in the scale. The 3x3 block is one float32 product
+    (TF32 is off in this package)."""
+    cm = dev_m * c
+    cf = dev_f * c
+    if weights is not None:
+        w = _masked(weights, mask)
+    elif mask is not None:
+        w = mask.to(cm.dtype)
+    else:
+        w = None
+    if w is None:
+        S3 = cm.T @ cf
+        ff = torch.sum(cf * cf)
+        mm = torch.sum(cm * cm)
+    else:
+        S3 = (cm * w[:, None]).T @ cf
+        ff = torch.sum(w * torch.sum(cf * cf, dim=-1))
+        mm = torch.sum(w * torch.sum(cm * cm, dim=-1))
+    return torch.cat([S3.reshape(9), ff.reshape(1), mm.reshape(1)])

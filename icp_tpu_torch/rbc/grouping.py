@@ -1,11 +1,14 @@
 """Fixed-capacity grouping of rows by bin id (port of
-``icp_tpu.rbc.grouping``, the bin-major layout path).
+``icp_tpu.rbc.grouping``).
 
 The RBC search needs its points bin-major in a padded (n_bins, capacity, d)
 table with a validity mask: one stable sort gives the order, the counts give
 the offsets, one row gather moves the rows into bin-major order, and the
 padded table is built by :func:`icp_tpu_torch.kernels.table_build.bin_table`
-(the CUDA kernel K2 on CUDA tensors).
+(the CUDA kernel K2 on CUDA tensors). :func:`group_rows_by_bin` is the hot
+path; :func:`group_by_bin` also keeps the member table of original indices,
+which the original-order search (``rbc.search.rbc_search``) scatters back
+through.
 """
 
 from __future__ import annotations
@@ -102,3 +105,59 @@ def group_rows_by_bin(bin_ids: torch.Tensor, n_bins: int, capacity: int,
             grouped.append(table[..., k:k + d])
             k += d
     return GroupedRows(counts, offsets, valid, tuple(grouped))
+
+
+class GroupLayout(NamedTuple):
+    """Bin-major layout of a point set grouped by bin id.
+
+    Attributes:
+      order: (n,) int32 original indices in bin-major (stable) order.
+      counts: (n_bins,) int32 points per bin.
+      offsets: (n_bins,) int32 exclusive prefix of counts.
+      member: (n_bins, capacity) int32 original index of each bin slot
+        (undefined where ``valid`` is False).
+      valid: (n_bins, capacity) bool slot validity; members ranked past
+        ``capacity`` in their bin are not represented (overflow).
+    """
+
+    order: torch.Tensor
+    counts: torch.Tensor
+    offsets: torch.Tensor
+    member: torch.Tensor
+    valid: torch.Tensor
+
+
+def group_by_bin(bin_ids: torch.Tensor, n_bins: int, capacity: int) -> GroupLayout:
+    """Group ``n`` points into ``n_bins`` fixed-capacity bins: a stable sort
+    of the bin ids, exact counts, and the member table as each bin's
+    contiguous run of the order (zero-padded past the end)."""
+    sbin, order = torch.sort(bin_ids, stable=True)
+    order = order.to(torch.int32)
+    counts = _counts_from_sorted(sbin, n_bins)
+    offsets = (torch.cumsum(counts, dim=0) - counts).to(torch.int32)
+    slots = torch.arange(capacity, dtype=torch.int32, device=bin_ids.device)
+    valid = slots[None, :] < counts[:, None]
+    order_padded = torch.cat([order, order.new_zeros((capacity,))])
+    member = order_padded[(offsets[:, None] + slots[None, :]).long()]
+    return GroupLayout(order, counts, offsets, member, valid)
+
+
+def gather_grouped(layout: GroupLayout, rows: torch.Tensor) -> torch.Tensor:
+    """``rows[member]`` as an (n_bins, capacity, d) table (padded slots
+    undefined): one row permute, then each bin's contiguous run (K2 on
+    CUDA tensors)."""
+    sorted_rows = torch.index_select(rows, 0, layout.order).contiguous()
+    return bin_table(sorted_rows, layout.offsets, capacity=layout.member.shape[1])
+
+
+def overflow_mask(layout: GroupLayout, bin_ids: torch.Tensor,
+                  capacity: int) -> torch.Tensor:
+    """(n,) bool, True for points whose rank in their bin is >= capacity
+    (a diagnostic, off the hot path)."""
+    n = bin_ids.shape[0]
+    order = layout.order.long()
+    rank_sorted = (torch.arange(n, dtype=torch.int32, device=bin_ids.device)
+                   - layout.offsets[bin_ids[order].long()])
+    rank = torch.zeros((n,), dtype=torch.int32, device=bin_ids.device)
+    rank[order] = rank_sorted
+    return rank >= capacity

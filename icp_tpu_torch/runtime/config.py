@@ -7,11 +7,11 @@ tensors run the hand-written kernels, CPU tensors their plain twins), so the
 port has no such switch. ``ICPParams`` holds the dynamic scalars as Python
 floats, or as 0-d float32 tensors after :meth:`ICPParams.to`.
 
-The port covers the RBC correspondence on the fused pipelines: POINT
-(``fused_point``) and PLANE / symmetric PLANE / GICP (``fused_gn``) with
-grid normals, each with or without a robust kernel and its adaptive scale.
-Any other configuration raises ``NotImplementedError`` naming the port slice
-of ``ROADMAP.md`` that brings it.
+The port covers the POINT, PLANE, symmetric PLANE and GICP objectives with
+grid normals, each with or without a robust kernel and its adaptive scale,
+on both correspondences (RBC, fused or unfused, and BRUTE). The kNN normal
+modes raise ``NotImplementedError`` naming the port slice of ``ROADMAP.md``
+that brings them.
 """
 
 from __future__ import annotations
@@ -132,18 +132,10 @@ class ICPConfig:
 
 def _check_ported(config: ICPConfig) -> None:
     """Raise NotImplementedError for configurations the port lacks yet."""
-    missing = []
-    if config.correspondence is not Correspondence.RBC:
-        missing.append("correspondence=BRUTE (ROADMAP slice 4)")
-    if config.objective is Objective.POINT and not config.fused_point:
-        missing.append("fused_point=False (ROADMAP slice 3)")
-    if config.needs_normals and not config.fused_gn:
-        missing.append("fused_gn=False (ROADMAP slice 3)")
     if config.needs_normals and config.normal_mode in ("knn", "knn_rbc"):
-        missing.append(f"normal_mode={config.normal_mode!r} (ROADMAP slice 5)")
-    if missing:
         raise NotImplementedError(
-            "icp_tpu_torch does not port " + ", ".join(missing) + " yet")
+            f"icp_tpu_torch does not port normal_mode={config.normal_mode!r} "
+            "(ROADMAP slice 5) yet")
 
 
 @dataclasses.dataclass

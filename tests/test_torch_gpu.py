@@ -206,3 +206,150 @@ def test_plane_register_on_card_matches_cpu(rendered):
     assert abs(int(st.k) - int(cpu.k)) <= 1
     assert float(np.linalg.norm(st.t.cpu().numpy() - cpu.t.numpy())) <= 0.05
     assert float(qangle_deg(qmul(st.q.cpu(), qconj(cpu.q)))) <= 0.005
+
+
+# ---- slices 3 and 4: K1′, K5 and K6 -----------------------------------------
+
+
+@pytest.fixture(scope="module")
+def cuda_dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda", 0)
+
+
+def test_rep_assign_kernel_matches_twin_and_k1(flagship):
+    from icp_tpu_torch.kernels import fused_step as fs
+
+    f = flagship
+    before = fs.rep_assign.launches
+    rid = fs.rep_assign(f["moving"], f["C"], f["srow"])
+    rid_t = fs.rep_assign_ref(f["moving"], f["C"], f["srow"])
+    rid_k1, _ = fs.rep_assign_counts(f["moving"], f["C"], f["srow"])
+    torch.cuda.synchronize()
+    assert fs.rep_assign.launches == before + 1
+    assert rid.dtype == torch.int32
+    assert torch.equal(rid, rid_t) and torch.equal(rid, rid_k1)
+
+
+def _search_tensors(dev, n_r, cq, cb, v, seed=0):
+    """Weighted rep-centered queries and bins at bin-like magnitudes, ~30 %
+    masked slots, bin 1 empty (every slot +inf), and a V-wide payload."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    w8 = torch.tensor([1, 1, 1, 0, 200, 200, 200, 0], dtype=torch.float32)
+    qc = torch.randn(n_r, cq, 8, generator=g) * torch.tensor([40, 40, 40, 0, .3, .3, .3, 1])
+    bins_c = torch.randn(n_r, cb, 8, generator=g) * torch.tensor([40, 40, 40, 0, .3, .3, .3, 1])
+    sq_b = torch.sum(bins_c * w8 * bins_c, dim=-1)
+    sq_b[torch.rand(n_r, cb, generator=g) < 0.3] = float("inf")
+    sq_b[1] = float("inf")
+    vals = torch.randn(n_r, cb, v, generator=g) * 1000
+    return tuple(x.contiguous().to(dev) for x in (qc * w8, bins_c, sq_b, vals))
+
+
+@pytest.mark.parametrize("n_r, cq, cb, v", [(256, 96, 128, 8), (256, 96, 128, 12),
+                                            (16, 1536, 2048, 8), (16, 1536, 2048, 12),
+                                            (3, 200, 700, 8)])
+def test_bin_search_kernel_bitwise(cuda_dev, n_r, cq, cb, v):
+    """K5 against its twin: the same scores and payloads bitwise, from the
+    flagship capacities (cq 96, cb 128) to m 16384 over 16 bins (cb 2048,
+    several shared-memory tiles per bin) and capacities off any tile size."""
+    from icp_tpu_torch.kernels import bin_search as bs
+
+    args = _search_tensors(cuda_dev, n_r, cq, cb, v)
+    before = bs.bin_search.launches
+    best, matched = bs.bin_search(*args)
+    best_t, matched_t = bs.bin_search_ref(*args)
+    torch.cuda.synchronize()
+    assert bs.bin_search.launches == before + 1
+    assert torch.equal(best.view(torch.int32), best_t.view(torch.int32))
+    assert torch.equal(matched.view(torch.int32), matched_t.view(torch.int32))
+    assert torch.isinf(best[1]).all() and torch.isfinite(matched).all()
+
+
+def test_bin_search_kernel_on_unfused_flagship_tables(flagship):
+    """K5 on the grouped tables the unfused step builds at the flagship
+    shape, bitwise against its twin."""
+    from icp_tpu_torch.kernels import bin_search as bs
+    from icp_tpu_torch.ops.distance import metric_weights, pairwise_sq_dists
+    from icp_tpu_torch.rbc.grouping import group_rows_by_bin
+
+    f = flagship
+    idx = f["index"]
+    rep = torch.argmin(pairwise_sq_dists(f["moving"], idx.reps, f["params"].alpha), dim=1)
+    gl = group_rows_by_bin(rep.to(torch.int32), N_R, f["cfg"].query_capacity, (f["moving"],))
+    qg_w = ((gl.grouped[0] - idx.reps[:, None, :])
+            * metric_weights(f["params"].alpha, device=f["dev"])).contiguous()
+    args = (qg_w, idx.bins_centered.contiguous(), idx.sq_b_masked.contiguous(),
+            idx.bins.contiguous())
+    best, matched = bs.bin_search(*args)
+    best_t, matched_t = bs.bin_search_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(best.view(torch.int32), best_t.view(torch.int32))
+    assert torch.equal(matched.view(torch.int32), matched_t.view(torch.int32))
+
+
+def _brute_tensors(dev, m, n, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    w8 = torch.tensor([1, 1, 1, 0, 200, 200, 200, 0], dtype=torch.float32)
+    scale = torch.tensor([300, 300, 100, 0, .3, .3, .3, 1])
+    q = torch.randn(m, 8, generator=g) * scale
+    db = torch.randn(n, 8, generator=g) * scale
+    return q, db, w8
+
+
+@pytest.mark.parametrize("m, n", [(20, 500), (1000, 5000), (4097, 3000)])
+def test_brute_nn_kernel_bitwise(cuda_dev, m, n):
+    """K6 against its twin, one database tile and several, any m and n:
+    the same index on every query and the same score bitwise."""
+    from icp_tpu_torch.kernels import brute_nn as bn
+
+    q, db, w8 = _brute_tensors(cuda_dev, m, n)
+    qw, db, sq_db = ((q * w8).to(cuda_dev), db.to(cuda_dev),
+                     torch.sum(db * w8 * db, dim=-1).to(cuda_dev))
+    before = bn.brute_nn.launches
+    idx, score = bn.brute_nn(qw, db, sq_db)
+    idx_t, score_t = bn.brute_nn_ref(qw, db, sq_db)
+    torch.cuda.synchronize()
+    assert bn.brute_nn.launches == before + 1
+    assert torch.equal(idx, idx_t)
+    assert torch.equal(score.view(torch.int32), score_t.view(torch.int32))
+
+
+def test_brute_nn_kernel_planted_tie_picks_first(cuda_dev):
+    """Duplicated database rows tie exactly: the first index wins, across
+    database tiles (1024 rows) and across the slices of one tile."""
+    from icp_tpu_torch.kernels import brute_nn as bn
+
+    q, db, w8 = _brute_tensors(cuda_dev, 64, 3000, seed=1)
+    db[2500] = db[17]   # another tile
+    db[300] = db[40]    # same tile, another slice
+    q[:8] = db[17]
+    q[8:16] = db[40]
+    qw, db, sq_db = ((q * w8).to(cuda_dev), db.to(cuda_dev),
+                     torch.sum(db * w8 * db, dim=-1).to(cuda_dev))
+    idx, _ = bn.brute_nn(qw, db, sq_db)
+    idx_t, _ = bn.brute_nn_ref(qw, db, sq_db)
+    torch.cuda.synchronize()
+    assert (idx[:8] == 17).all() and (idx[8:16] == 40).all()
+    assert torch.equal(idx, idx_t)
+
+
+@pytest.mark.parametrize("d", [{"correspondence": "brute"},
+                               {"objective": "plane", "fused_gn": False,
+                                "estimate_scale": False}])
+def test_unfused_register_on_card_matches_cpu(rendered, d):
+    """BRUTE POINT and unfused PLANE on the card against the CPU twins, on
+    every fourth landmark of the rendered pair (the CPU twin of K6 sweeps
+    the whole m x m set each step)."""
+    from icp_tpu_torch import ICPParams, register
+    from icp_tpu_torch.icp.quaternion import qangle_deg, qconj, qmul
+    from icp_tpu_torch.interop import config_from_dict
+
+    r = rendered
+    fixed, moving = r["fixed"][::4].contiguous(), r["moving"][::4].contiguous()
+    cfg = config_from_dict(dict(d, m=fixed.shape[0], n_r=64))
+    st = register(fixed.to(r["dev"]), moving.to(r["dev"]), ICPParams(alpha=2e2), cfg)
+    cpu = register(fixed, moving, ICPParams(alpha=2e2), cfg)
+    assert abs(int(st.k) - int(cpu.k)) <= 1
+    assert float(np.linalg.norm(st.t.cpu().numpy() - cpu.t.numpy())) <= 0.05
+    assert float(qangle_deg(qmul(st.q.cpu(), qconj(cpu.q)))) <= 0.005

@@ -62,7 +62,35 @@ BRUTE with K6, and K1′) add:
 4c. The marginal ms per iteration of BRUTE POINT and unfused PLANE, and
     K1′, K5, K6 and K2 at 16x against their twins.
 
-The line before the last is {"kernels": [...]}; the last line is
+Slice 5 (kNN normals of unorganized clouds: K9 rep_top2_counts and K8
+bin_knn_moments) adds, on the reference's wavy-surface pairs
+(icp_tpu_torch.sensors.synthetic.wavy_surface_pair):
+
+2e. K9 at the LiDAR shape (262144 raw points, 2048 Morton reps) against its
+    twin: counts exact and equal to the bincounts of the kernel's own ids,
+    i1 and i2 agreement >= 99.9 % with every disagreement a float64
+    near-tie; K8 on the tables the estimator builds there (n_r 2048, cq 192,
+    cb 384, k 16): n bitwise, components within 1e-5 of each query's
+    largest, and the normals of the two within cos 0.9999 on >= 99.9 % of
+    the slots.
+3d. The reference's LiDAR gate: PLANE at m 262144, n_r 2048 with
+    normal_mode "knn" (the RBC estimator) within 1.0 mm and 0.05 deg, K9
+    and K8 launched, K1, K2 and K7 at least k times; the estimator on the
+    card against the analytic normals (median |cos| > 0.999, >= 95 % above
+    0.99, < 2 % zero normals) and at 16384 points against the CPU twins
+    (the same zero set, |dn| <= 1e-4 on >= 99.9 % of rows); GICP with
+    "knn_rbc" at 16384 points, and the reference's 4x and 16x POINT gates
+    (65536 x 1024, 262144 x 2048), each within the gate.
+4d. Times: K9, K8, K7 and K1 at the LiDAR shape against their twins, the
+    estimator's ms per call at 262144 points and the marginal ms per
+    iteration of the LiDAR PLANE registration and the 4x / 16x POINT cells.
+
+The line before the last is {"kernels": [...]}: per kernel its launches on
+the main path, its error against the twin, its time and the twin's, and its
+bound, the larger of the fp32 operations of the work over 67 TFLOP/s (no
+kernel uses the tensor cores) and its bytes (each input read once, each
+output written once) over 3.35 TB/s; library_ms is null, since no single
+PyTorch call computes any of these functions. The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -94,6 +122,13 @@ T_GT_R = np.array([10.0, -6.0, 8.0])
 REFERENCE_GATES = {"plane": (0.306, 0.0208), "plane_sym": (0.352, 0.0233),
                    "robust": (0.334, 0.0219), "gicp": (0.313, 0.0198)}
 T_GATE, A_GATE = 1.0, 0.05  # bench.py's accuracy gate, mm and deg
+M_L, N_R_L = 262144, 2048  # the LiDAR gate and the 16x cell
+# The reference's errors on its TPU run (BENCH_r05.json), printed beside the
+# port's scaled-shape gates: not targets.
+REFERENCE_SCALE = {"lidar": (0.0006, 1e-05), "icp_4x": (0.3154, 0.00957),
+                   "icp_16x": (0.162, 0.00375)}
+# H100 SXM peaks (NVIDIA's data sheet): fp32 outside the tensor cores, HBM3.
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 
 
 def _run(cmd: list[str]) -> str:
@@ -165,6 +200,61 @@ def _finite_err(got, want) -> float:
     return float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
 
 
+def _tensors(x) -> list:
+    """Every tensor in a nested tuple / list / dict."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (tuple, list)):
+        return [t for y in x for t in _tensors(y)]
+    return []
+
+
+def _work(name: str, args, kwargs, out) -> tuple[float, int]:
+    """(fp32 operations, bytes) of one kernel call: the bytes read each input
+    and write each output once; the operations are counted from the inner
+    loops. A bf16x3 score over 8 lanes is three 15-operation lane products,
+    2 adds, the scaled subtraction and a compare (50 per query-candidate
+    pair); over 3 lanes 21. Per query or per neighbour terms are added
+    where the kernel has them."""
+    nbytes = sum(t.numel() * t.element_size() for t in _tensors((args, kwargs, out)))
+    a = args
+    if name in ("rep_assign_counts", "rep_assign"):
+        ops = 50 * a[0].shape[0] * a[1].shape[1]
+    elif name == "bin_table":
+        ops = 0
+    elif name == "brute_nn":  # full fp32: 8-lane product, score, compare
+        ops = 18 * a[0].shape[0] * a[1].shape[0]
+    elif name == "bin_search":
+        ops = 50 * a[0].shape[0] * a[0].shape[1] * a[1].shape[1]
+    elif name == "rep_top2_counts":
+        ops = 21 * a[0].shape[0] * a[1].shape[0]
+    elif name == "bin_knn_moments":  # d2, 18 bisection passes, membership;
+        n_r, cq = a[0].shape[:2]     # 40 per admitted neighbour
+        ops = 60 * n_r * cq * a[1].shape[1] + 40 * float(out[1].sum()) + 100 * n_r * cq
+    else:  # K3, K4, K7: the search, then per query the transform and rows
+        n_r, cq = a[0].shape[:2]
+        cb = a[4 if name == "bin_gn_moments" else 3].shape[1]
+        ops = 50 * n_r * cq * cb + 400 * n_r * cq
+    return float(ops), nbytes
+
+
+def _bound(ops: float, nbytes: int) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it)."""
+    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _analytic_normals(cloud8: np.ndarray) -> np.ndarray:
+    """Normals of the wavy surface z = 1500 + 80 sin(u/90) + 60 cos(v/70),
+    oriented toward the sensor (the reference's tests/test_knn_normals.py)."""
+    u, v = cloud8[:, 0].astype(np.float64), cloud8[:, 1].astype(np.float64)
+    n = np.stack([80.0 / 90.0 * np.cos(u / 90.0), -60.0 / 70.0 * np.sin(v / 70.0),
+                  -np.ones_like(u)], -1)
+    return n / np.linalg.norm(n, axis=-1, keepdims=True)
+
+
 def _cuda_ms(fn, reps: int = 20) -> float:
     """Mean device ms of one call of ``fn`` over ``reps`` back-to-back calls.
 
@@ -202,14 +292,17 @@ def main() -> None:
     from icp_tpu_torch.kernels import brute_nn as bn
     from icp_tpu_torch.kernels import fused_gn as fg
     from icp_tpu_torch.kernels import fused_step as fs
+    from icp_tpu_torch.kernels import knn_moments as km
     from icp_tpu_torch.kernels import native
     from icp_tpu_torch.kernels import table_build as tb
     from icp_tpu_torch.ops import distance as distance_mod
     from icp_tpu_torch.ops.moments import masked_median
+    from icp_tpu_torch.ops import normals as normals_mod
     from icp_tpu_torch.ops.normals import normals_for
     from icp_tpu_torch.ops.sampling import sample_representative_indices
     from icp_tpu_torch.rbc import grouping
     from icp_tpu_torch.rbc import search as search_mod
+    from icp_tpu_torch.sensors.synthetic import wavy_surface_pair
 
     dev = torch.device("cuda", 0)
 
@@ -437,6 +530,61 @@ def main() -> None:
             raise AssertionError(f"K2 at 16x, d {d}, differs from its twin")
     del f16, mv16, rows16
 
+    # ---- 2e. Slice 5: K9 and K8 at the LiDAR shape ---------------------------
+    wf_np, wm_np, q_l, t_l = wavy_surface_pair(M_L)
+    wf, wm = torch.from_numpy(wf_np).to(dev), torch.from_numpy(wm_np).to(dev)
+    p_l = wf[:, :3].contiguous()
+    stride_l = M_L // N_R_L
+    reps_l = p_l[normals_mod._morton_order(p_l)[stride_l // 2::stride_l][:N_R_L].long()]
+    k9_args = (p_l, reps_l)
+    top_k = km.rep_top2_counts(*k9_args)
+    top_t = km.rep_top2_counts_ref(*k9_args)
+    torch.cuda.synchronize()
+    for j in range(2):
+        if not torch.equal(top_k[2][j], torch.bincount(top_k[j], minlength=N_R_L).to(torch.int32)):
+            raise AssertionError(f"K9 counts[{j}] != bincount of its own ids")
+    r64 = reps_l.double()
+    sq64 = torch.sum(r64 * r64, dim=1)
+    k9_worst, k9_msg = 0.0, []
+    for j in range(2):
+        diff = top_k[j] != top_t[j]
+        agree = 1.0 - float(diff.float().mean())
+        k9_msg.append(f"i{j + 1} agreement {agree:.6f} ({int(diff.sum())} of {M_L} differ)")
+        if agree < 0.999:
+            raise AssertionError(f"K9 i{j + 1} agreement {agree} < 0.999")
+        if bool(diff.any()):  # the raw score |r|^2 - 2 p.r in float64
+            rows = torch.nonzero(diff)[:, 0]
+            s64 = sq64[None, :] - 2.0 * (p_l[rows].double() @ r64.T)
+            a = s64.gather(1, top_k[j][rows].long()[:, None])
+            b = s64.gather(1, top_t[j][rows].long()[:, None])
+            k9_worst = max(k9_worst, float(((a - b).abs() / b.abs().clamp(min=1.0)).max()))
+    k9_err = int((top_k[2] - top_t[2]).abs().max())
+    print(f"K9 rep_top2_counts {M_L} x {N_R_L}: counts equal the bincounts of its ids, "
+          f"max|dcounts| vs twin {k9_err}; {', '.join(k9_msg)}; worst float64 "
+          f"excess of a differing pick {k9_worst:.3e}", flush=True)
+    if k9_worst > 1e-5:
+        raise AssertionError(f"K9 differing pick is not a near-tie: {k9_worst}")
+
+    k8_args, k8_kw = _capture(normals_mod, "bin_knn_moments",
+                              lambda: normals_mod.knn_normals_rbc(wf))
+    comps_k, cnt_k = km.bin_knn_moments(*k8_args, **k8_kw)
+    comps_t, cnt_t = km.bin_knn_moments_ref(*k8_args, **k8_kw)
+    torch.cuda.synchronize()
+    ck, ct = torch.stack(comps_k), torch.stack(comps_t)
+    k8_err = float((ck - ct).abs().max())
+    k8_rel = float(((ck - ct).abs() / ct.abs().amax(dim=0).clamp(min=1e-30)).max())
+    qfin = torch.isfinite(k8_args[0]).all(dim=-1)
+    n_k = torch.stack(normals_mod._smallest_eigvec3_components(*comps_k), dim=-1)
+    n_t = torch.stack(normals_mod._smallest_eigvec3_components(*comps_t), dim=-1)
+    cos_share = float(((n_k * n_t).sum(-1).abs()[qfin] > 0.9999).float().mean())
+    print(f"K8 bin_knn_moments qp {tuple(k8_args[0].shape)}, bins {tuple(k8_args[1].shape)}, "
+          f"k {k8_kw['k']}: n bitwise: {torch.equal(cnt_k, cnt_t)} (mean n "
+          f"{float(cnt_k[qfin].mean()):.3f}); max|dC| {k8_err:.4e}, worst relative to the "
+          f"query's largest component {k8_rel:.3e} (bound 1e-5); normals cos > 0.9999 on "
+          f"{cos_share:.6f} of {int(qfin.sum())} slots", flush=True)
+    if not (torch.equal(cnt_k, cnt_t) and k8_rel <= 1e-5 and cos_share >= 0.999):
+        raise AssertionError("K8 disagrees with its twin")
+
     # ---- 3. The slice: three flagship registrations ------------------------
     counters = {"rep_assign_counts": fs.rep_assign_counts,
                 "rep_assign": fs.rep_assign,
@@ -445,7 +593,9 @@ def main() -> None:
                 "bin_min_dists": fs.bin_min_dists,
                 "bin_search": bs.bin_search,
                 "brute_nn": bn.brute_nn,
-                "bin_gn_moments": fg.bin_gn_moments}
+                "bin_gn_moments": fg.bin_gn_moments,
+                "rep_top2_counts": km.rep_top2_counts,
+                "bin_knn_moments": km.bin_knn_moments}
     launches = dict.fromkeys(counters, 0)
 
     def drive_call(call):
@@ -621,6 +771,61 @@ def main() -> None:
         raise AssertionError("the K1' two-phase step differs from the K1 step")
     require_launched(ran, ("rep_assign", "bin_table", "bin_point_moments"), 1, "two-phase")
 
+    # ---- 3d. Slice 5: the LiDAR gate and the scaled-shape gates -------------
+    cfg_lidar = ICPConfig(m=M_L, n_r=N_R_L, estimate_scale=False,
+                          objective=Objective.PLANE, normal_mode="knn")
+    f_g, m_g, q_g, t_g = wavy_surface_pair(M)
+    f_4x, m_4x, q_4x, t_4x = wavy_surface_pair(65536)
+    f_4x, m_4x = torch.from_numpy(f_4x).to(dev), torch.from_numpy(m_4x).to(dev)
+    scale_gates = {  # name -> (fixed, moving, q_gt, t_gt, config, kernels run k times)
+        "lidar": (wf, wm, q_l, t_l, cfg_lidar,
+                  ("rep_assign_counts", "bin_table", "bin_gn_moments")),
+        "gicp knn_rbc 16384": (torch.from_numpy(f_g).to(dev), torch.from_numpy(m_g).to(dev),
+                               q_g, t_g, ICPConfig(objective=Objective.GICP,
+                                                   normal_mode="knn_rbc",
+                                                   estimate_scale=False),
+                               ("rep_assign_counts", "bin_table", "bin_gn_moments")),
+        "icp_4x": (f_4x, m_4x, q_4x, t_4x, ICPConfig(m=65536, n_r=1024),
+                   ("rep_assign_counts", "bin_table", "bin_point_moments")),
+        "icp_16x": (wf, wm, q_l, t_l, ICPConfig(m=M_L, n_r=N_R_L),
+                    ("rep_assign_counts", "bin_table", "bin_point_moments")),
+    }
+    for name, (f_t, m_t, q_gt, t_gt, config, need) in scale_gates.items():
+        st, wall, ran = drive(f_t, m_t, params, config)
+        k = int(st.k)
+        t_err, a_err = _errors(st, q_gt, t_gt)
+        ref = REFERENCE_SCALE.get(name)
+        ref_txt = f" (JAX reference on its TPU run: {ref[0]} mm, {ref[1]} deg)" if ref else ""
+        print(f"gate {name} (m {config.m}, n_r {config.n_r}, {config.objective.name}, "
+              f"normal_mode {config.normal_mode}) on {torch.cuda.get_device_name(0)}: k={k} "
+              f"t_err={t_err:.6f} mm a_err={a_err:.7f} deg wall={wall:.3f} s "
+              f"launches={ran}{ref_txt}", flush=True)
+        if not (t_err < T_GATE and a_err < A_GATE):
+            raise AssertionError(f"gate {name}: registration off the ground truth")
+        require_launched(ran, need, k, f"gate {name}")
+        if config.normal_mode.startswith("knn"):
+            require_launched(ran, ("rep_top2_counts", "bin_knn_moments"), 1, f"gate {name}")
+
+    n_l = normals_mod.knn_normals_rbc(wf).cpu().numpy()
+    cos = np.abs(np.sum(n_l * _analytic_normals(wf_np), axis=-1))
+    zero = float(np.mean((n_l == 0).all(axis=1)))
+    print(f"knn_normals_rbc at {M_L} points on the card against the analytic normals: "
+          f"median |cos| {float(np.median(cos)):.6f} (bound > 0.999), share above 0.99 "
+          f"{float(np.mean(cos > 0.99)):.6f} (>= 0.95), zero normals {zero:.6f} (< 0.02)",
+          flush=True)
+    if not (np.median(cos) > 0.999 and np.mean(cos > 0.99) >= 0.95 and zero < 0.02):
+        raise AssertionError("the card's kNN normals miss the analytic surface")
+    c16 = torch.from_numpy(f_g)
+    n_gpu = normals_mod.knn_normals_rbc(c16.to(dev)).cpu()
+    n_cpu = normals_mod.knn_normals_rbc(c16)
+    same_zero = torch.equal((n_gpu == 0).all(1), (n_cpu == 0).all(1))
+    close = float(((n_gpu - n_cpu).abs().amax(1) <= 1e-4).float().mean())
+    print(f"knn_normals_rbc at {M} points, card vs CPU twins: zero set equal: {same_zero}, "
+          f"|dn| <= 1e-4 on {close:.6f} of rows (bound 0.999), max|dn| "
+          f"{float((n_gpu - n_cpu).abs().max()):.3e}", flush=True)
+    if not (same_zero and close >= 0.999):
+        raise AssertionError("kNN normals on the card and the CPU disagree")
+
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"{name} never launched on the main path")
@@ -710,49 +915,76 @@ def main() -> None:
               f"{t40 * 1e3} ms, T8 {t8 * 1e3} ms, min of 3 alternating rounds)",
               flush=True)
 
-    table_args = (sorted_rows, offsets)
-    pairs = {
-        "rep_assign_counts": (lambda: fs.rep_assign_counts(moving, C, srow),
-                              lambda: fs.rep_assign_counts_ref(moving, C, srow)),
-        "rep_assign": (lambda: fs.rep_assign(moving, C, srow),
-                       lambda: fs.rep_assign_ref(moving, C, srow)),
-        "bin_table": (lambda: tb.bin_table(*table_args, capacity=cfg.query_capacity),
-                      lambda: tb.bin_table_ref(*table_args, capacity=cfg.query_capacity)),
-        "bin_point_moments": (lambda: fs.bin_point_moments(*k3_args, weighted=True),
-                              lambda: fs.bin_point_moments_ref(*k3_args, weighted=True)),
-        "bin_min_dists": (lambda: fs.bin_min_dists(*k4_args),
-                          lambda: fs.bin_min_dists_ref(*k4_args)),
-        "brute_nn": (lambda: bn.brute_nn(*k6_args), lambda: bn.brute_nn_ref(*k6_args)),
+    # ---- 4d. Slice 5: the LiDAR cells and the scaled POINT cells -------------
+    for name, (f_t, m_t, config) in {
+            "LiDAR PLANE, normal_mode knn": (wf, wm, cfg_lidar),
+            "POINT 4x": (f_4x, m_4x, scale_gates["icp_4x"][4]),
+            "POINT 16x": (wf, wm, scale_gates["icp_16x"][4])}.items():
+        per_iter, t40, t8 = marginal_ms(f_t, m_t, config, 3)
+        print(f"{name} marginal ms/iteration at {config.m}x{config.n_r}: {per_iter} (T40 "
+              f"{t40 * 1e3} ms, T8 {t8 * 1e3} ms, min of 3 alternating rounds)", flush=True)
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            normals_mod.knn_normals_rbc(wf)
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) / 5)
+    print(f"knn_normals_rbc ms per call at {M_L} points: {best * 1e3} (min of 3 rounds "
+          f"of 5 calls; the reference's knn_normals_ms_262144 on its TPU run: 25.402)",
+          flush=True)
+    # K1 and K7 as the LiDAR step hands them their tensors (n_r 2048, cq 192).
+    index_l = build_index(wf, prm_d, cfg_lidar)
+    k1x_args = _capture(search_mod, "rep_assign_counts",
+                        lambda: icp_step(st0, wm, index_l, prm_d, cfg_lidar))
+    k7x_args = _capture(search_mod, "bin_gn_moments",
+                        lambda: icp_step(st0, wm, index_l, prm_d, cfg_lidar))
+
+    # Each timed case: (wrapper, twin, args, kwargs). Keys with "@" are
+    # printed apart: the kernels line keeps each kernel's main-path shape
+    # (the flagship for K1-K7, the LiDAR shape for K8 and K9).
+    cases = {
+        "rep_assign_counts": (fs.rep_assign_counts, fs.rep_assign_counts_ref,
+                              (moving, C, srow), {}),
+        "rep_assign": (fs.rep_assign, fs.rep_assign_ref, (moving, C, srow), {}),
+        "bin_table": (tb.bin_table, tb.bin_table_ref, (sorted_rows, offsets),
+                      {"capacity": cfg.query_capacity}),
+        "bin_point_moments": (fs.bin_point_moments, fs.bin_point_moments_ref, k3_args,
+                              {"weighted": True}),
+        "bin_min_dists": (fs.bin_min_dists, fs.bin_min_dists_ref, k4_args, {}),
+        "brute_nn": (bn.brute_nn, bn.brute_nn_ref, k6_args, {}),
+        "rep_top2_counts": (km.rep_top2_counts, km.rep_top2_counts_ref, k9_args, {}),
+        "bin_knn_moments": (km.bin_knn_moments, km.bin_knn_moments_ref, k8_args, k8_kw),
+        "rep_assign_counts@16x": (fs.rep_assign_counts, fs.rep_assign_counts_ref, *k1x_args),
+        "bin_gn_moments@16x plane": (fg.bin_gn_moments, fg.bin_gn_moments_ref, *k7x_args),
     }
     for mode, (a, kw) in gn_args.items():
-        pairs[f"bin_gn_moments {mode}"] = (
-            lambda a=a, kw=kw: fg.bin_gn_moments(*a, **kw),
-            lambda a=a, kw=kw: fg.bin_gn_moments_ref(*a, **kw))
+        cases[f"bin_gn_moments {mode}"] = (fg.bin_gn_moments, fg.bin_gn_moments_ref, a, kw)
     for robust, (a, kw) in k3r_args.items():
-        pairs[f"bin_point_moments {robust}"] = (
-            lambda a=a, kw=kw: fs.bin_point_moments(*a, **kw),
-            lambda a=a, kw=kw: fs.bin_point_moments_ref(*a, **kw))
-    # The n_r = 16 case is printed apart: K5's row keeps the flagship shapes.
+        cases[f"bin_point_moments {robust}"] = (fs.bin_point_moments,
+                                               fs.bin_point_moments_ref, a, kw)
     for case, a in k5_cases.items():
         key = "bin_search@" if "n_r=16" in case else "bin_search "
-        pairs[key + case] = (lambda a=a: bs.bin_search(*a),
-                             lambda a=a: bs.bin_search_ref(*a))
-    # The 16x table is printed apart: the kernels line keeps K2's flagship row.
+        cases[key + case] = (bs.bin_search, bs.bin_search_ref, a, {})
     for d, (rows, starts) in k2x_args.items():
-        pairs[f"bin_table@16x d={d}"] = (
-            lambda rows=rows, starts=starts: tb.bin_table(rows, starts, capacity=cap16),
-            lambda rows=rows, starts=starts: tb.bin_table_ref(rows, starts, capacity=cap16))
-    # K6's twin sweeps the whole 16384 x 16384 set in 1024-query chunks: 5
-    # calls per timing instead of 20.
-    twin_reps = {"brute_nn": 5}
+        cases[f"bin_table@16x d={d}"] = (tb.bin_table, tb.bin_table_ref, (rows, starts),
+                                         {"capacity": cap16})
+    # Twins that sweep a large set (K6's 16384 x 16384, K1 and K9 over
+    # 262144 x 2048 scores, K8 over 2048 bins): 5 calls per timing, not 20.
+    twin_reps = {"brute_nn": 5, "rep_top2_counts": 5, "bin_knn_moments": 5,
+                 "rep_assign_counts@16x": 5}
     times = {}
-    for name, (kernel, twin) in pairs.items():
+    for key, (kernel, twin, a, kw) in cases.items():
+        bound = _bound(*_work(key.split()[0].split("@")[0], a, kw, kernel(*a, **kw)))
         k_ms, t_ms = float("inf"), float("inf")
         for _ in range(3):  # alternate kernel and twin; keep each minimum
-            k_ms = min(k_ms, _cuda_ms(kernel))
-            t_ms = min(t_ms, _cuda_ms(twin, twin_reps.get(name, 20)))
-        times[name] = (k_ms, t_ms)
-        print(f"{name}: kernel {k_ms} ms, plain twin {t_ms} ms", flush=True)
+            k_ms = min(k_ms, _cuda_ms(lambda f=kernel, a=a, kw=kw: f(*a, **kw)))
+            t_ms = min(t_ms, _cuda_ms(lambda f=twin, a=a, kw=kw: f(*a, **kw),
+                                      twin_reps.get(key, 20)))
+        times[key] = (k_ms, t_ms, *bound)
+        print(f"{key}: kernel {k_ms} ms, plain twin {t_ms} ms, bound {bound[0]} ms "
+              f"({bound[1]})", flush=True)
 
     meta = {
         "rep_assign_counts": ("icp_tpu_torch/csrc/rep_assign_counts.cu",
@@ -773,14 +1005,22 @@ def main() -> None:
                      "icp_tpu/kernels/brute_nn.py:69", k6_err),
         "bin_gn_moments": ("icp_tpu_torch/csrc/bin_gn_moments.cu",
                            "icp_tpu/kernels/fused_gn.py:318", k7_err),
+        "rep_top2_counts": ("icp_tpu_torch/csrc/rep_top2_counts.cu",
+                            "icp_tpu/kernels/knn_moments.py:223", k9_err),
+        "bin_knn_moments": ("icp_tpu_torch/csrc/bin_knn_moments.cu",
+                            "icp_tpu/kernels/knn_moments.py:158", k8_err),
     }
-    # A kernel with several modes reports its slowest mode.
+    # A kernel with several modes reports its slowest mode and that mode's
+    # bound.
     for name in meta:
         modes = [t for key, t in times.items() if key.split()[0] == name]
-        times[name] = (max(t[0] for t in modes), max(t[1] for t in modes))
+        slow = max(modes, key=lambda t: t[0])
+        times[name] = (slow[0], max(t[1] for t in modes), slow[2], slow[3])
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": err,
-                "ms": times[name][0], "plain_ms": times[name][1]}
+                "ms": times[name][0], "plain_ms": times[name][1],
+                "bound_ms": times[name][2], "bound_by": times[name][3],
+                "library_ms": None}
                for name, (src, rep, err) in meta.items()]
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

@@ -7,9 +7,11 @@ the first CUDA call) on CUDA tensors and their plain PyTorch twins on CPU
 tensors. It never imports jax or icp_tpu.
 
 Ported so far: ``register(fixed8, moving8, params, config)`` for the POINT,
-PLANE, symmetric PLANE and GICP objectives with grid normals, on the fused
-and unfused RBC pipelines and on BRUTE correspondence, with POWER / SVD /
-JACOBI rotation, WEIGHTED / REGULAR weighting and the robust kernels.
+PLANE, symmetric PLANE and GICP objectives with grid normals or the kNN
+normals of unorganized clouds (exact, or RBC-accelerated for LiDAR-scale
+sweeps), on the fused and unfused RBC pipelines and on BRUTE
+correspondence, with POWER / SVD / JACOBI rotation, WEIGHTED / REGULAR
+weighting and the robust kernels.
 
 Geometry runs in full float32: importing the package disables TF32 for
 matrix products and cuDNN, since TF32 shows up as ~0.5% coordinate error and

@@ -29,8 +29,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "icp_tpu_torch"
-# No --use_fast_math: the +inf slot mask and the 100/(100+d^2) weight
-# must stay IEEE.
+# No --use_fast_math: the +inf slot mask, the 100/(100+d^2) weight and the
+# kNN bisection must stay IEEE.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -62,6 +62,10 @@ SIGNATURES = {
     "icp_bin_search": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     # qw, db, sq_db, m, n, idx, score, stream
     "icp_brute_nn": [_P, _P, _P, _I, _I, _P, _P, _P],
+    # p3, reps, srow, m, n_r, i1, i2, counts, stream
+    "icp_rep_top2_counts": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
+    # qp, ld_q, bins, reps, bvalid, n_r, cq, cb, k, out (7, n_r, cq), stream
+    "icp_bin_knn_moments": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 build_info: dict = {}  # filled by load_library(): path, seconds, log

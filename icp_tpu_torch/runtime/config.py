@@ -7,11 +7,10 @@ tensors run the hand-written kernels, CPU tensors their plain twins), so the
 port has no such switch. ``ICPParams`` holds the dynamic scalars as Python
 floats, or as 0-d float32 tensors after :meth:`ICPParams.to`.
 
-The port covers the POINT, PLANE, symmetric PLANE and GICP objectives with
-grid normals, each with or without a robust kernel and its adaptive scale,
-on both correspondences (RBC, fused or unfused, and BRUTE). The kNN normal
-modes raise ``NotImplementedError`` naming the port slice of ``ROADMAP.md``
-that brings them.
+The port covers every configuration the JAX package validates: the POINT,
+PLANE, symmetric PLANE and GICP objectives with grid or kNN normals, each
+with or without a robust kernel and its adaptive scale, on both
+correspondences (RBC, fused or unfused, and BRUTE).
 """
 
 from __future__ import annotations
@@ -106,7 +105,6 @@ class ICPConfig:
         if self.query_capacity == 0:
             object.__setattr__(self, "query_capacity",
                                max(((3 * mean_occ // 2 + 7) // 8) * 8, 16))
-        _check_ported(self)
 
     @property
     def needs_normals(self) -> bool:
@@ -128,14 +126,6 @@ class ICPConfig:
         if (1 << p) != self.n_r:
             raise ValueError("n_r must be a power of 2 for the rep sampler")
         return (1 << (p // 2), 1 << (p - p // 2))
-
-
-def _check_ported(config: ICPConfig) -> None:
-    """Raise NotImplementedError for configurations the port lacks yet."""
-    if config.needs_normals and config.normal_mode in ("knn", "knn_rbc"):
-        raise NotImplementedError(
-            f"icp_tpu_torch does not port normal_mode={config.normal_mode!r} "
-            "(ROADMAP slice 5) yet")
 
 
 @dataclasses.dataclass

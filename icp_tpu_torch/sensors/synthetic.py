@@ -4,13 +4,15 @@
 An analytic ray-traced scene (textured planes + spheres) rendered through
 the reference's pinhole model from any camera pose, so frame pairs come with
 exact ground-truth transforms. One vectorized pass renders all 640 x 480
-rays. Millimeters, camera looking down +z.
+rays. Millimeters, camera looking down +z. :func:`wavy_surface_pair` makes
+the unorganized ground-truth pairs of the scaled-shape gates in numpy.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from icp_tpu_torch.icp.quaternion import qidentity, qrotate
@@ -129,3 +131,41 @@ def render_cloud(scene: Scene, pose: CameraPose) -> torch.Tensor:
     registering frame B to frame A recovers the relative pose A_from_B."""
     depth, rgb = render(scene, pose)
     return backproject(depth, rgb)
+
+
+def wavy_surface_pair(m: int, seed_a: int = 1, seed_b: int = 2,
+                      ang_rad: float = 0.004,
+                      t_mm: tuple = (10.0, -6.0, 8.0)):
+    """Ground-truth registration pair at any m (the scaled-shape gates).
+
+    Two independent random samplings of the analytic wavy surface
+    z = 1500 + 80 sin(u/90) + 60 cos(v/70), so correspondences are only
+    approximate, and a known rigid transform applied to the second. numpy
+    only, bitwise the JAX package's ``wavy_surface_pair``. Returns numpy
+    ``(fixed, moving, q_gt, t_gt)`` with moving in the moving frame
+    (p_m = R^T (p_w - t)), so ``register(fixed, moving)`` should recover
+    ``(q_gt, t_gt)``.
+    """
+    def sample(seed):
+        rng = np.random.default_rng(seed)
+        u = rng.uniform(-400, 400, m).astype(np.float32)
+        v = rng.uniform(-300, 300, m).astype(np.float32)
+        z = 1500 + 80 * np.sin(u / 90) + 60 * np.cos(v / 70)
+        cloud = np.ones((m, 8), np.float32)
+        cloud[:, :3] = np.stack([u, v, z], -1)
+        cloud[:, 4] = 0.5 + 0.5 * np.sin(u / 40)
+        cloud[:, 5] = 0.5 + 0.5 * np.cos(v / 55)
+        cloud[:, 6] = np.clip((z - 1350) / 300.0, 0, 1)
+        return cloud
+
+    fixed = sample(seed_a)
+    world_b = sample(seed_b)
+    q = np.array([0, np.sin(ang_rad), 0, np.cos(ang_rad)], np.float32)
+    t = np.asarray(t_mm, np.float32)
+    R = np.array([
+        [1 - 2 * q[1] ** 2, 0, 2 * q[1] * q[3]],
+        [0, 1, 0],
+        [-2 * q[1] * q[3], 0, 1 - 2 * q[1] ** 2]], np.float32)
+    moving = world_b.copy()
+    moving[:, :3] = (world_b[:, :3] - t) @ R
+    return fixed, moving, q, t

@@ -65,7 +65,8 @@ def test_rep_grid_rejects_non_power_of_two():
 
 
 @pytest.mark.parametrize("d, slice_no", [
-    # Ported with slices 3 and 4 (None): they construct and match JAX.
+    # Once refused, now ported: slices 3 and 4 (None) and slice 5 (the kNN
+    # normal modes). Each constructs and matches JAX.
     ({"correspondence": "brute"}, None),
     ({"objective": "plane", "fused_gn": False}, None),
     ({"objective": "plane", "normal_mode": "knn"}, 5),
@@ -74,10 +75,6 @@ def test_rep_grid_rejects_non_power_of_two():
     ({"fused_point": False}, None),
 ])
 def test_unported_configs_raise_naming_their_slice(d, slice_no):
-    if slice_no is not None:
-        with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
-            config_from_dict(d)
-        return
     jc, tc = _jax_config(d), config_from_dict(d)
     assert tc == config_from_dict(dataclasses.asdict(jc))
     for f in dataclasses.fields(tc):

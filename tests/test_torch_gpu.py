@@ -353,3 +353,176 @@ def test_unfused_register_on_card_matches_cpu(rendered, d):
     assert abs(int(st.k) - int(cpu.k)) <= 1
     assert float(np.linalg.norm(st.t.cpu().numpy() - cpu.t.numpy())) <= 0.05
     assert float(qangle_deg(qmul(st.q.cpu(), qconj(cpu.q)))) <= 0.005
+
+
+# ---- slice 5: K9 and K8, the kNN normals of unorganized clouds --------------
+
+
+def _top2_agreement(p, reps, got, want):
+    """(ids that differ, worst float64 excess of a differing pick relative to
+    the score's magnitude): K1's near-tie rule on the raw score
+    |r|^2 - 2 p.r."""
+    r64 = reps.double()
+    s64 = torch.sum(r64 * r64, dim=1)[None, :] - 2.0 * (p.double() @ r64.T)
+    n_diff, worst = 0, 0.0
+    for g, w in zip(got[:2], want[:2]):
+        diff = g != w
+        n_diff += int(diff.sum())
+        if bool(diff.any()):
+            rows = torch.nonzero(diff)[:, 0]
+            a = s64[rows, g[rows].long()]
+            b = s64[rows, w[rows].long()]
+            worst = max(worst, float(((a - b).abs() / b.abs().clamp(min=1.0)).max()))
+    return n_diff, worst
+
+
+def _top2_case(name, dev):
+    from icp_tpu_torch.ops.normals import _morton_order
+    from icp_tpu_torch.sensors.synthetic import wavy_surface_pair
+
+    g = np.random.default_rng(0)
+    if name == "normal":
+        p = (g.normal(size=(2048, 3)) * 100).astype(np.float32)
+        reps = p[g.choice(2048, 64, replace=False)]
+    elif name == "ties":
+        p = g.integers(-4, 5, size=(1024, 3)).astype(np.float32)
+        reps = g.integers(-3, 4, size=(16, 3)).astype(np.float32)
+        reps[5] = reps[11] = reps[2]
+        reps[[0, 7, 13]] = [[10, 0, 0], [0, 10, 0], [0, 0, 10]]
+        p[:4] = 0.0
+    else:
+        m, n_r = {"wavy": (4096, 64), "lidar": (262144, 2048)}[name]
+        p = wavy_surface_pair(m)[0][:, :3].copy()
+        stride = m // n_r
+        order = _morton_order(torch.from_numpy(p)).numpy()
+        reps = p[order[stride // 2::stride][:n_r]]
+    return torch.from_numpy(p).to(dev), torch.from_numpy(np.ascontiguousarray(reps)).to(dev)
+
+
+@pytest.mark.parametrize("name", ["normal", "ties", "wavy", "lidar"])
+def test_rep_top2_counts_kernel_matches_twin(cuda_dev, name):
+    """K9 against its twin from the reference test's data to the LiDAR shape
+    (262144 raw points, 2048 Morton reps): counts exact and equal to the
+    bincounts of the kernel's own ids; ids equal, or a float64 near-tie."""
+    from icp_tpu_torch.kernels import knn_moments as km
+
+    p, reps = _top2_case(name, cuda_dev)
+    before = km.rep_top2_counts.launches
+    got = km.rep_top2_counts(p, reps)
+    want = km.rep_top2_counts_ref(p, reps)
+    torch.cuda.synchronize()
+    assert km.rep_top2_counts.launches == before + 1
+    n_r = reps.shape[0]
+    for j in range(2):
+        assert torch.equal(got[2][j], torch.bincount(got[j], minlength=n_r).to(torch.int32))
+    n_diff, worst = _top2_agreement(p, reps, got, want)
+    assert n_diff <= 0.001 * 2 * p.shape[0] and worst <= 1e-5
+    if name == "ties":  # exact scores: the same ids bitwise
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _knn_moment_tensors(dev, seed=0):
+    """The reference test's K8 inputs: underfull bins and a NaN entry."""
+    g = np.random.default_rng(seed)
+    n_r, cq, cb = 8, 16, 128
+    reps = (g.normal(size=(n_r, 3)) * 100).astype(np.float32)
+    qp = reps[:, None, :] + (g.normal(size=(n_r, cq, 3)) * 40).astype(np.float32)
+    bins = reps[:, None, :] + (g.normal(size=(n_r, cb, 3)) * 40).astype(np.float32)
+    bvalid = np.ones((n_r, cb), bool)
+    for r in range(n_r):
+        bvalid[r, int(g.integers(4, cb)):] = False
+    bins[2, 1] = np.nan
+    qp[3, 5] = np.nan  # an invalid query: n = 1, C = 0
+    return tuple(torch.from_numpy(x).to(dev) for x in (qp, bins, reps, bvalid))
+
+
+def _check_knn_moments(args, k):
+    from icp_tpu_torch.kernels import knn_moments as km
+
+    before = km.bin_knn_moments.launches
+    comps, cnt = km.bin_knn_moments(*args, k=k)
+    comps_t, cnt_t = km.bin_knn_moments_ref(*args, k=k)
+    torch.cuda.synchronize()
+    assert km.bin_knn_moments.launches == before + 1
+    assert torch.equal(cnt, cnt_t)
+    got, want = torch.stack(comps), torch.stack(comps_t)
+    scale = want.abs().amax(dim=0).clamp(min=1.0)
+    assert float(((got - want).abs() / scale).max()) <= 1e-5
+    return comps, cnt
+
+
+def test_bin_knn_moments_kernel_matches_twin(cuda_dev):
+    """K8 on the reference test's inputs: n bitwise, components within 1e-5
+    of each query's largest component; the NaN query gives n = 1 and C = 0."""
+    comps, cnt = _check_knn_moments(_knn_moment_tensors(cuda_dev), 12)
+    assert float(cnt[3, 5]) == 1.0
+    assert all(float(c[3, 5]) == 0.0 for c in comps)
+
+
+def test_bin_knn_moments_kernel_at_the_lidar_shape(cuda_dev):
+    """K8 on the tables the estimator builds at the LiDAR shape (262144
+    points, n_r 2048, cq 192, cb 384, k 16), taken from its own call."""
+    from icp_tpu_torch.ops import normals as nm
+    from icp_tpu_torch.sensors.synthetic import wavy_surface_pair
+
+    fixed = torch.from_numpy(wavy_surface_pair(262144)[0]).to(cuda_dev)
+    seen = []
+    real = nm.bin_knn_moments
+    nm.bin_knn_moments = lambda *a, **kw: seen.append((a, kw)) or real(*a, **kw)
+    try:
+        nm.knn_normals_rbc(fixed)
+    finally:
+        nm.bin_knn_moments = real
+    args, kw = seen[0]
+    assert tuple(args[0].shape) == (2048, 192, 3) and tuple(args[1].shape) == (2048, 384, 3)
+    _check_knn_moments(args, kw["k"])
+
+
+def test_knn_normals_rbc_on_card_matches_cpu(cuda_dev):
+    """The RBC estimator at 16384 points on the card against the CPU twins:
+    the same zero set, and |dn| <= 1e-4 on at least 99.9 % of the rows."""
+    from icp_tpu_torch.ops.normals import knn_normals_rbc
+    from icp_tpu_torch.sensors.synthetic import wavy_surface_pair
+
+    cloud = torch.from_numpy(wavy_surface_pair(16384)[0])
+    cloud[::997] = 0.0  # dropouts
+    got = knn_normals_rbc(cloud.to(cuda_dev)).cpu()
+    want = knn_normals_rbc(cloud)
+    assert torch.equal((got == 0).all(1), (want == 0).all(1))
+    assert float(((got - want).abs().amax(1) <= 1e-4).float().mean()) >= 0.999
+
+
+def test_plane_knn_register_on_card_matches_cpu(cuda_dev):
+    """PLANE with kNN normals (brute at 4096 points, and RBC) on the card
+    against the CPU twins, on the unorganized wavy-surface pair."""
+    from icp_tpu_torch import ICPConfig, ICPParams, Objective, register
+    from icp_tpu_torch.icp.quaternion import qangle_deg, qconj, qmul
+    from icp_tpu_torch.sensors.synthetic import wavy_surface_pair
+
+    fixed, moving = (torch.from_numpy(a) for a in wavy_surface_pair(4096)[:2])
+    for mode in ("knn", "knn_rbc"):
+        cfg = ICPConfig(m=4096, n_r=64, objective=Objective.PLANE, normal_mode=mode,
+                        estimate_scale=False)
+        st = register(fixed.to(cuda_dev), moving.to(cuda_dev), ICPParams(alpha=2e2), cfg)
+        cpu = register(fixed, moving, ICPParams(alpha=2e2), cfg)
+        assert abs(int(st.k) - int(cpu.k)) <= 1
+        assert float(np.linalg.norm(st.t.cpu().numpy() - cpu.t.numpy())) <= 0.05
+        assert float(qangle_deg(qmul(st.q.cpu(), qconj(cpu.q)))) <= 0.005
+
+
+def test_knn_normals_rbc_reads_nothing_back(cuda_dev):
+    """The RBC estimator on the card makes no call that waits for the
+    stream (torch's sync debug mode raises on one), after a warm-up call
+    that builds the kernels."""
+    from icp_tpu_torch.ops.normals import knn_normals_rbc
+    from icp_tpu_torch.sensors.synthetic import wavy_surface_pair
+
+    cloud = torch.from_numpy(wavy_surface_pair(16384)[0]).to(cuda_dev)
+    knn_normals_rbc(cloud)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        knn_normals_rbc(cloud)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()

@@ -15,6 +15,8 @@ from icp_tpu_torch.ops import normals as TN
 from icp_tpu_torch.ops import sampling as TS
 from icp_tpu_torch.sensors import pinhole as TP
 from icp_tpu_torch.sensors import synthetic as TY
+from tests.test_icp_e2e import _structured_cloud
+from tests.test_torch_knn import _jax_rbc_k9_branch
 
 # bench.py's gate pose B: 0.008 rad about y, t = (10, -6, 8) mm.
 Q_B = np.array([0.0, np.sin(0.004), 0.0, np.cos(0.004)], np.float32)
@@ -77,9 +79,16 @@ def test_normals_for_modes_match_jax(rng):
         JN.normals_for(jnp.asarray(odd), "grid")
     with pytest.raises(ValueError):
         TN.normals_for(_t(odd), "grid")
-    for mode in ("knn", "knn_rbc"):
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            TN.normals_for(_t(square), mode)
+    # The unorganized-cloud estimators, on a random sample of the surface of
+    # square size (a regular grid would tie kNN distances exactly). Off the
+    # TPU, JAX's "knn_rbc" assigns bins with an XLA strip; the port's
+    # dispatch is held to JAX's K9 branch, which the port runs everywhere.
+    cloud = _structured_cloud(rng, 256)
+    for mode, want in (("knn", np.asarray(JN.normals_for(jnp.asarray(cloud), "knn"))),
+                       ("knn_rbc", _jax_rbc_k9_branch(cloud))):
+        got = TN.normals_for(_t(cloud), mode).numpy()
+        np.testing.assert_array_equal(np.all(got == 0, axis=1), np.all(want == 0, axis=1))
+        np.testing.assert_allclose(got, want, atol=1e-4)
 
 
 def test_backproject_matches_jax(rng):

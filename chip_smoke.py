@@ -72,7 +72,11 @@ bin_knn_moments) adds, on the reference's wavy-surface pairs
     near-tie; K8 on the tables the estimator builds there (n_r 2048, cq 192,
     cb 384, k 16): n bitwise, components within 1e-5 of each query's
     largest, and the normals of the two within cos 0.9999 on >= 99.9 % of
-    the slots.
+    the slots. K9's and K8's arguments come from one call of the estimator.
+2f. The per-step kernels of the 16x paths, on the arguments the steps hand
+    them: K1 at the LiDAR PLANE step (262144 x 2048) under phase 2's rule,
+    K7 plane there (cq 192, cb 256) and K3 at the 16x POINT step, each P
+    within 1e-4 of max|P|, K7 repeating bitwise.
 3d. The reference's LiDAR gate: PLANE at m 262144, n_r 2048 with
     normal_mode "knn" (the RBC estimator) within 1.0 mm and 0.05 deg, K9
     and K8 launched, K1, K2 and K7 at least k times; the estimator on the
@@ -81,12 +85,14 @@ bin_knn_moments) adds, on the reference's wavy-surface pairs
     (the same zero set, |dn| <= 1e-4 on >= 99.9 % of rows); GICP with
     "knn_rbc" at 16384 points, and the reference's 4x and 16x POINT gates
     (65536 x 1024, 262144 x 2048), each within the gate.
-4d. Times: K9, K8, K7 and K1 at the LiDAR shape against their twins, the
+4d. Times: K9, K8, K7, K3 and K1 at the 16x shape against their twins, the
     estimator's ms per call at 262144 points and the marginal ms per
     iteration of the LiDAR PLANE registration and the 4x / 16x POINT cells.
 
 The line before the last is {"kernels": [...]}: per kernel its launches on
-the main path, its error against the twin, its time and the twin's, and its
+the main path, its largest error against the twin over every shape checked
+(and, for K1, K2, K3 and K7, max_abs_err_16x at the 16x shape apart), its
+time and the twin's, and its
 bound, the larger of the fp32 operations of the work over 67 TFLOP/s (no
 kernel uses the tensor cores) and its bytes (each input read once, each
 output written once) over 3.35 TB/s; library_ms is null, since no single
@@ -170,23 +176,64 @@ def _rel_err(got, want) -> tuple[float, float]:
     return float((got - want).abs().max()), float(want.abs().max())
 
 
-def _capture(module, name: str, call):
-    """The (args, kwargs) of the first call that ``call()`` makes to
-    ``module.name``: the tensors the main path hands a kernel's wrapper."""
-    orig = getattr(module, name)
-    seen = []
+def _capture_all(module, names: tuple[str, ...], call) -> dict:
+    """{name: (args, kwargs)} of the first call that ``call()`` makes to each
+    ``module.name``: the tensors the main path hands the kernels' wrappers."""
+    origs = {name: getattr(module, name) for name in names}
+    seen = {}
 
-    def spy(*args, **kwargs):
-        seen.append((args, kwargs))
-        return orig(*args, **kwargs)
+    def spy(name):
+        def wrapped(*args, **kwargs):
+            seen.setdefault(name, (args, kwargs))
+            return origs[name](*args, **kwargs)
+        return wrapped
 
-    setattr(module, name, spy)
+    for name in names:
+        setattr(module, name, spy(name))
     try:
         call()
     finally:
-        setattr(module, name, orig)
+        for name, orig in origs.items():
+            setattr(module, name, orig)
     torch.cuda.synchronize()
-    return seen[0]
+    return seen
+
+
+def _capture(module, name: str, call):
+    """The (args, kwargs) of the first call that ``call()`` makes to
+    ``module.name``."""
+    return _capture_all(module, (name,), call)[name]
+
+
+def _check_rep_assign(fs, moving8, C, srow, what: str) -> tuple:
+    """K1 against its twin: counts equal the bincount of the kernel's own
+    rids and sum to m; rid agreement >= 99.9 %, every differing pick a
+    float64 near-tie. Returns (rid, counts, max|dcounts| against the twin)."""
+    m, n_r = moving8.shape[0], C.shape[1]
+    rid_k, counts_k = fs.rep_assign_counts(moving8, C, srow)
+    rid_t, counts_t = fs.rep_assign_counts_ref(moving8, C, srow)
+    torch.cuda.synchronize()
+    if not torch.equal(counts_k, torch.bincount(rid_k, minlength=n_r).to(torch.int32)):
+        raise AssertionError(f"K1 {what}: counts != bincount(rid)")
+    if int(counts_k.sum()) != m:
+        raise AssertionError(f"K1 {what}: counts sum {int(counts_k.sum())} != {m}")
+    diff = rid_k != rid_t
+    agree = 1.0 - float(diff.float().mean())
+    worst = 0.0
+    if bool(diff.any()):  # the score in float64 on the differing rows
+        rows = torch.nonzero(diff)[:, 0]
+        s64 = srow.double() - 2.0 * (moving8[rows].double() @ C.double())
+        best64 = s64.min(dim=1).values
+        picked = s64.gather(1, rid_k[rows].long()[:, None])[:, 0]
+        worst = float(((picked - best64) / best64.abs().clamp(min=1.0)).max())
+    print(f"K1 rep_assign_counts {what} ({m} x {n_r}): rid agreement {agree:.6f} "
+          f"({int(diff.sum())} of {m} differ), worst float64 excess of a "
+          f"differing pick {worst:.3e}", flush=True)
+    if agree < 0.999:
+        raise AssertionError(f"K1 {what}: rid agreement {agree} < 0.999")
+    if worst > 1e-5:
+        raise AssertionError(f"K1 {what}: differing pick is not a near-tie: {worst}")
+    return rid_k, counts_k, int((counts_k - counts_t).abs().max())
 
 
 def _bitwise(got, want) -> bool:
@@ -334,28 +381,7 @@ def main() -> None:
     C, srow = fs.prep_rep_assign(index.reps, alpha, G, b_row)
     C = C.contiguous()
 
-    rid_k, counts_k = fs.rep_assign_counts(moving, C, srow)
-    rid_t, counts_t = fs.rep_assign_counts_ref(moving, C, srow)
-    torch.cuda.synchronize()
-    if not torch.equal(counts_k, torch.bincount(rid_k, minlength=N_R).to(torch.int32)):
-        raise AssertionError("K1 counts != bincount(rid)")
-    if int(counts_k.sum()) != M:
-        raise AssertionError(f"K1 counts sum {int(counts_k.sum())} != {M}")
-    agree = float((rid_k == rid_t).float().mean())
-    score64 = srow.double() - 2.0 * (moving.double() @ C.double())
-    best64 = score64.min(dim=1).values
-    picked = score64.gather(1, rid_k.long()[:, None])[:, 0]
-    excess = ((picked - best64) / best64.abs().clamp(min=1.0))
-    diff = rid_k != rid_t
-    worst = float(excess[diff].max()) if bool(diff.any()) else 0.0
-    print(f"K1 rep_assign_counts: rid agreement {agree:.6f} "
-          f"({int(diff.sum())} of {M} differ), worst float64 excess of a "
-          f"differing pick {worst:.3e}", flush=True)
-    if agree < 0.999:
-        raise AssertionError(f"K1 rid agreement {agree} < 0.999")
-    if worst > 1e-5:
-        raise AssertionError(f"K1 differing pick is not a near-tie: {worst}")
-    k1_err = int((counts_k - counts_t).abs().max())
+    rid_k, counts_k, k1_err = _check_rep_assign(fs, moving, C, srow, "flagship")
 
     sidx, counts, offsets, valid = grouping.bin_sort_layout(
         rid_k, N_R, cfg.query_capacity, counts=counts_k)
@@ -533,10 +559,13 @@ def main() -> None:
     # ---- 2e. Slice 5: K9 and K8 at the LiDAR shape ---------------------------
     wf_np, wm_np, q_l, t_l = wavy_surface_pair(M_L)
     wf, wm = torch.from_numpy(wf_np).to(dev), torch.from_numpy(wm_np).to(dev)
-    p_l = wf[:, :3].contiguous()
-    stride_l = M_L // N_R_L
-    reps_l = p_l[normals_mod._morton_order(p_l)[stride_l // 2::stride_l][:N_R_L].long()]
-    k9_args = (p_l, reps_l)
+    # K9's and K8's arguments as the estimator hands them, from one call.
+    knn_args = _capture_all(normals_mod, ("rep_top2_counts", "bin_knn_moments"),
+                            lambda: normals_mod.knn_normals_rbc(wf))
+    k9_args = knn_args["rep_top2_counts"][0]
+    p_l, reps_l = k9_args
+    if reps_l.shape[0] != N_R_L:
+        raise AssertionError(f"the estimator chose {reps_l.shape[0]} reps, not {N_R_L}")
     top_k = km.rep_top2_counts(*k9_args)
     top_t = km.rep_top2_counts_ref(*k9_args)
     torch.cuda.synchronize()
@@ -565,8 +594,7 @@ def main() -> None:
     if k9_worst > 1e-5:
         raise AssertionError(f"K9 differing pick is not a near-tie: {k9_worst}")
 
-    k8_args, k8_kw = _capture(normals_mod, "bin_knn_moments",
-                              lambda: normals_mod.knn_normals_rbc(wf))
+    k8_args, k8_kw = knn_args["bin_knn_moments"]
     comps_k, cnt_k = km.bin_knn_moments(*k8_args, **k8_kw)
     comps_t, cnt_t = km.bin_knn_moments_ref(*k8_args, **k8_kw)
     torch.cuda.synchronize()
@@ -584,6 +612,39 @@ def main() -> None:
           f"{cos_share:.6f} of {int(qfin.sum())} slots", flush=True)
     if not (torch.equal(cnt_k, cnt_t) and k8_rel <= 1e-5 and cos_share >= 0.999):
         raise AssertionError("K8 disagrees with its twin")
+
+    # ---- 2f. K1, K7 and K3 at the 16x shape, as the steps hand them --------
+    # The LiDAR PLANE step runs K1 (n_r 2048) and K7 plane (cq 192, cb 256);
+    # the 16x POINT step runs K3 at the same layout.
+    cfg_lidar = ICPConfig(m=M_L, n_r=N_R_L, estimate_scale=False,
+                          objective=Objective.PLANE, normal_mode="knn")
+    cfg_16x = ICPConfig(m=M_L, n_r=N_R_L)
+    index_l = build_index(wf, prm_d, cfg_lidar)
+    step_args = _capture_all(search_mod, ("rep_assign_counts", "bin_gn_moments"),
+                             lambda: icp_step(st0, wm, index_l, prm_d, cfg_lidar))
+    k1x_args, k7x_args = step_args["rep_assign_counts"], step_args["bin_gn_moments"]
+    k3x_args = _capture(search_mod, "bin_point_moments", lambda: icp_step(
+        st0, wm, build_index(wf, prm_d, cfg_16x), prm_d, cfg_16x))
+    del index_l
+    err16 = {"bin_table": 0.0}  # K2 at 16x is bitwise (2d)
+    err16["rep_assign_counts"] = _check_rep_assign(fs, *k1x_args[0], "LiDAR step")[2]
+    for name, kernel, twin, (a, kw) in (
+            ("bin_gn_moments", fg.bin_gn_moments, fg.bin_gn_moments_ref, k7x_args),
+            ("bin_point_moments", fs.bin_point_moments, fs.bin_point_moments_ref,
+             k3x_args)):
+        got, want, again = kernel(*a, **kw), twin(*a, **kw), kernel(*a, **kw)
+        torch.cuda.synchronize()
+        err, scale = _rel_err(got, want)
+        err16[name] = err
+        cb = a[4 if name == "bin_gn_moments" else 3].shape[1]
+        print(f"{name} 16x (mg {tuple(a[0].shape)}, cb {cb}, "
+              f"{kw}): max|dP| {err:.4e} vs max|P| {scale:.4e} (ratio "
+              f"{err / scale:.3e}, bound 1e-4); repeats bitwise: "
+              f"{torch.equal(got, again)}", flush=True)
+        if not err <= 1e-4 * scale:
+            raise AssertionError(f"{name} at 16x disagrees with its twin")
+        if name == "bin_gn_moments" and not torch.equal(got, again):
+            raise AssertionError("K7 at 16x does not repeat bitwise")
 
     # ---- 3. The slice: three flagship registrations ------------------------
     counters = {"rep_assign_counts": fs.rep_assign_counts,
@@ -772,8 +833,6 @@ def main() -> None:
     require_launched(ran, ("rep_assign", "bin_table", "bin_point_moments"), 1, "two-phase")
 
     # ---- 3d. Slice 5: the LiDAR gate and the scaled-shape gates -------------
-    cfg_lidar = ICPConfig(m=M_L, n_r=N_R_L, estimate_scale=False,
-                          objective=Objective.PLANE, normal_mode="knn")
     f_g, m_g, q_g, t_g = wavy_surface_pair(M)
     f_4x, m_4x, q_4x, t_4x = wavy_surface_pair(65536)
     f_4x, m_4x = torch.from_numpy(f_4x).to(dev), torch.from_numpy(m_4x).to(dev)
@@ -787,7 +846,7 @@ def main() -> None:
                                ("rep_assign_counts", "bin_table", "bin_gn_moments")),
         "icp_4x": (f_4x, m_4x, q_4x, t_4x, ICPConfig(m=65536, n_r=1024),
                    ("rep_assign_counts", "bin_table", "bin_point_moments")),
-        "icp_16x": (wf, wm, q_l, t_l, ICPConfig(m=M_L, n_r=N_R_L),
+        "icp_16x": (wf, wm, q_l, t_l, cfg_16x,
                     ("rep_assign_counts", "bin_table", "bin_point_moments")),
     }
     for name, (f_t, m_t, q_gt, t_gt, config, need) in scale_gates.items():
@@ -934,13 +993,6 @@ def main() -> None:
     print(f"knn_normals_rbc ms per call at {M_L} points: {best * 1e3} (min of 3 rounds "
           f"of 5 calls; the reference's knn_normals_ms_262144 on its TPU run: 25.402)",
           flush=True)
-    # K1 and K7 as the LiDAR step hands them their tensors (n_r 2048, cq 192).
-    index_l = build_index(wf, prm_d, cfg_lidar)
-    k1x_args = _capture(search_mod, "rep_assign_counts",
-                        lambda: icp_step(st0, wm, index_l, prm_d, cfg_lidar))
-    k7x_args = _capture(search_mod, "bin_gn_moments",
-                        lambda: icp_step(st0, wm, index_l, prm_d, cfg_lidar))
-
     # Each timed case: (wrapper, twin, args, kwargs). Keys with "@" are
     # printed apart: the kernels line keeps each kernel's main-path shape
     # (the flagship for K1-K7, the LiDAR shape for K8 and K9).
@@ -958,6 +1010,8 @@ def main() -> None:
         "bin_knn_moments": (km.bin_knn_moments, km.bin_knn_moments_ref, k8_args, k8_kw),
         "rep_assign_counts@16x": (fs.rep_assign_counts, fs.rep_assign_counts_ref, *k1x_args),
         "bin_gn_moments@16x plane": (fg.bin_gn_moments, fg.bin_gn_moments_ref, *k7x_args),
+        "bin_point_moments@16x": (fs.bin_point_moments, fs.bin_point_moments_ref,
+                                  *k3x_args),
     }
     for mode, (a, kw) in gn_args.items():
         cases[f"bin_gn_moments {mode}"] = (fg.bin_gn_moments, fg.bin_gn_moments_ref, a, kw)
@@ -973,7 +1027,7 @@ def main() -> None:
     # Twins that sweep a large set (K6's 16384 x 16384, K1 and K9 over
     # 262144 x 2048 scores, K8 over 2048 bins): 5 calls per timing, not 20.
     twin_reps = {"brute_nn": 5, "rep_top2_counts": 5, "bin_knn_moments": 5,
-                 "rep_assign_counts@16x": 5}
+                 "rep_assign_counts@16x": 5, "bin_point_moments@16x": 5}
     times = {}
     for key, (kernel, twin, a, kw) in cases.items():
         bound = _bound(*_work(key.split()[0].split("@")[0], a, kw, kernel(*a, **kw)))
@@ -1016,11 +1070,14 @@ def main() -> None:
         modes = [t for key, t in times.items() if key.split()[0] == name]
         slow = max(modes, key=lambda t: t[0])
         times[name] = (slow[0], max(t[1] for t in modes), slow[2], slow[3])
+    # max_abs_err is the largest over every shape checked; the kernels the
+    # 16x paths run also give their error there apart (max_abs_err_16x).
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[name], "max_abs_err": err,
+                "launches": launches[name], "max_abs_err": max(err, err16.get(name, 0)),
                 "ms": times[name][0], "plain_ms": times[name][1],
                 "bound_ms": times[name][2], "bound_by": times[name][3],
                 "library_ms": None}
+               | ({"max_abs_err_16x": err16[name]} if name in err16 else {})
                for name, (src, rep, err) in meta.items()]
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

@@ -222,7 +222,10 @@ def knn_normals_rbc(points8: torch.Tensor, k: int = 16, n_r: int = 0,
       n_r: representative count (0 = auto: about m/128 mean occupancy, a
         power of two, at least 64).
       multi_assign: database-side bin multiplicity (2 covers ball
-        boundaries; 1 is single-ball RBC).
+        boundaries; 1 is single-ball RBC). Kept for parity with
+        ``icp_tpu``'s signature: nothing in this package passes another
+        value than 2, so only K9's front half runs on the registration
+        path and the strip half is reached only by a direct call.
       chunk: bins per step of K8's CPU twin.
     """
     p = points8[:, :3].contiguous()

@@ -64,17 +64,17 @@ def test_rep_grid_rejects_non_power_of_two():
         T.ICPConfig(n_r=12).rep_grid
 
 
-@pytest.mark.parametrize("d, slice_no", [
-    # Once refused, now ported: slices 3 and 4 (None) and slice 5 (the kNN
-    # normal modes). Each constructs and matches JAX.
-    ({"correspondence": "brute"}, None),
-    ({"objective": "plane", "fused_gn": False}, None),
-    ({"objective": "plane", "normal_mode": "knn"}, 5),
-    ({"objective": "plane", "normal_mode": "knn_rbc"}, 5),
-    ({"robust": "trimmed", "fused_point": False}, None),
-    ({"fused_point": False}, None),
+@pytest.mark.parametrize("d", [
+    # Configurations the port once refused (BRUTE, the unfused pipeline and
+    # the kNN normal modes): each constructs and matches JAX.
+    {"correspondence": "brute"},
+    {"objective": "plane", "fused_gn": False},
+    {"objective": "plane", "normal_mode": "knn"},
+    {"objective": "plane", "normal_mode": "knn_rbc"},
+    {"robust": "trimmed", "fused_point": False},
+    {"fused_point": False},
 ])
-def test_unported_configs_raise_naming_their_slice(d, slice_no):
+def test_once_refused_configs_construct_and_match_jax(d):
     jc, tc = _jax_config(d), config_from_dict(d)
     assert tc == config_from_dict(dataclasses.asdict(jc))
     for f in dataclasses.fields(tc):

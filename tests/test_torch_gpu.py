@@ -478,6 +478,81 @@ def test_bin_knn_moments_kernel_at_the_lidar_shape(cuda_dev):
     _check_knn_moments(args, kw["k"])
 
 
+@pytest.fixture(scope="module")
+def step16x(cuda_dev):
+    """{wrapper name: (args, kwargs)} that the first LiDAR PLANE step (m
+    262144, n_r 2048, normal_mode "knn") hands K1 and K7, and the first 16x
+    POINT step hands K3."""
+    from icp_tpu_torch import ICPConfig, ICPParams, Objective, icp_step
+    from icp_tpu_torch.icp.run import build_index
+    from icp_tpu_torch.icp.state import identity_state
+    from icp_tpu_torch.rbc import search
+    from icp_tpu_torch.sensors.synthetic import wavy_surface_pair
+
+    fixed, moving = (torch.from_numpy(a).to(cuda_dev) for a in wavy_surface_pair(262144)[:2])
+    params = ICPParams(alpha=2e2).to(cuda_dev)
+    st = identity_state(torch.float32, cuda_dev)
+    seen = {}
+    real = {n: getattr(search, n)
+            for n in ("rep_assign_counts", "bin_gn_moments", "bin_point_moments")}
+
+    def spy(name):
+        def wrapped(*a, **kw):
+            seen.setdefault(name, (a, kw))
+            return real[name](*a, **kw)
+        return wrapped
+
+    for name in real:
+        setattr(search, name, spy(name))
+    try:
+        for cfg in (ICPConfig(m=262144, n_r=2048, objective=Objective.PLANE,
+                              estimate_scale=False, normal_mode="knn"),
+                    ICPConfig(m=262144, n_r=2048)):
+            icp_step(st, moving, build_index(fixed, params, cfg), params, cfg)
+    finally:
+        for name, fn in real.items():
+            setattr(search, name, fn)
+    return seen
+
+
+def test_rep_assign_counts_kernel_at_the_16x_shape(step16x):
+    """K1 at n_r 2048 (the 147 KB shared-memory opt-in) on the LiDAR step's
+    tensors: counts equal the bincount of its own rids; rids equal to the
+    twin's, or each difference a float64 near-tie."""
+    from icp_tpu_torch.kernels import fused_step as fs
+
+    (moving8, C, srow), _ = step16x["rep_assign_counts"]
+    assert tuple(C.shape) == (8, 2048)
+    rid, counts = fs.rep_assign_counts(moving8, C, srow)
+    rid_t, _ = fs.rep_assign_counts_ref(moving8, C, srow)
+    torch.cuda.synchronize()
+    assert torch.equal(counts, torch.bincount(rid, minlength=2048).to(torch.int32))
+    diff = torch.nonzero(rid != rid_t)[:, 0]
+    assert diff.numel() <= 0.001 * rid.numel()
+    if diff.numel():
+        s64 = srow.double() - 2.0 * (moving8[diff].double() @ C.double())
+        best = s64.min(dim=1).values
+        picked = s64.gather(1, rid[diff].long()[:, None])[:, 0]
+        assert float(((picked - best) / best.abs().clamp(min=1.0)).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("name", ["bin_gn_moments", "bin_point_moments"])
+def test_moment_kernels_at_the_16x_shape(step16x, name):
+    """K7 plane (LiDAR step) and K3 (16x POINT step) at cq 192, cb 256:
+    P within 1e-4 of max|P| of the twin's."""
+    from icp_tpu_torch.kernels import fused_gn as fg
+    from icp_tpu_torch.kernels import fused_step as fs
+
+    kernel, twin = {"bin_gn_moments": (fg.bin_gn_moments, fg.bin_gn_moments_ref),
+                    "bin_point_moments": (fs.bin_point_moments,
+                                          fs.bin_point_moments_ref)}[name]
+    a, kw = step16x[name]
+    assert tuple(a[0].shape[:2]) == (2048, 192)
+    got, want = kernel(*a, **kw), twin(*a, **kw)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
 def test_knn_normals_rbc_on_card_matches_cpu(cuda_dev):
     """The RBC estimator at 16384 points on the card against the CPU twins:
     the same zero set, and |dn| <= 1e-4 on at least 99.9 % of the rows."""

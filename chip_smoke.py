@@ -9,8 +9,8 @@ Phases (any failure raises and exits non-zero; there is no CPU fallback):
    the torch and nvcc versions, and build the kernels from csrc/.
 2. Kernels against their plain PyTorch twins on the card, on the tensors of
    the first iteration of the flagship pair (m=16384, n_r=256): K2 bitwise;
-   K1 exact counts, rid agreement >= 99.9% with every disagreement a
-   float64 near-tie; K3 max|dP| <= 1e-4 max|P|.
+   K1 exact counts and every rid equal to the twin's, K1′ equal to K1; K3
+   max|dP| <= 1e-4 max|P| and a second launch bitwise equal to the first.
 3. The slice: register three flagship pairs (seeds 0, 1, 2) with the
    default ICPConfig through icp_tpu_torch.register on CUDA tensors; each
    must land within 0.05 mm and 0.005 deg of the ground truth, the launch
@@ -30,8 +30,8 @@ landmarks made by icp_tpu_torch.sensors:
 2b. K4, K7 (plane, plane_sym, gicp) and K3 with Huber and TRIMMED weights
     against their twins on the first iteration's tensors (m=16384, n_r=256,
     cq 96, cb 128): K4 the same +inf slots and finite values within 1e-6 of
-    the largest; K7's P and P_z and K3's P within 1e-4 of max|P|; K7's P
-    repeats bitwise.
+    the largest; K7's P and P_z and K3's P within 1e-4 of max|P|, each
+    repeating bitwise.
 3b. The four bench gates (plane, plane_sym, robust with 12 % gross outliers
     made as bench.py makes them, gicp) registered on CUDA tensors, each
     within t_err < 1.0 mm and a_err < 0.05 deg, with K1, K2, K7 (and K4 for
@@ -45,11 +45,14 @@ landmarks made by icp_tpu_torch.sensors:
 Slices 3 and 4 (the unfused per-pair pipeline: RBC grouped search with K5,
 BRUTE with K6, and K1′) add:
 
-2c. K1′ rid bitwise equal to its twin and to K1's; K5 on the tables the
+2c. K5 on the tables the
     unfused step passes it (taken from icp_step itself) on the synthetic
     flagship pair (V = 8), on the rendered pair with normals (V = 12) and
-    at n_r = 16 (cb = 2048): scores and payloads bitwise; K6 on the
-    16384 x 16384 BRUTE step: every index and score bitwise.
+    at n_r = 16 (cb = 2048): scores and payloads bitwise; K3 on what the
+    fused step hands it at n_r 32 and 16 (cq 768 / 1536, cb 1024 / 2048:
+    several query and bin tiles) within 1e-4 of max|P| and repeating
+    bitwise; K6 on the 16384 x 16384 BRUTE step: every index and score
+    bitwise.
 2d. K2 at the 16x layout (262144 rows, 2048 bins, cap 256, d = 8 and 11),
     the shape of the windowed TPU variant, bitwise against its twin.
 3c. BRUTE POINT on the synthetic pair (seeds 0, 1, 2) within 0.05 mm and
@@ -74,9 +77,10 @@ bin_knn_moments) adds, on the reference's wavy-surface pairs
     largest, and the normals of the two within cos 0.9999 on >= 99.9 % of
     the slots. K9's and K8's arguments come from one call of the estimator.
 2f. The per-step kernels of the 16x paths, on the arguments the steps hand
-    them: K1 at the LiDAR PLANE step (262144 x 2048) under phase 2's rule,
-    K7 plane there (cq 192, cb 256) and K3 at the 16x POINT step, each P
-    within 1e-4 of max|P|, K7 repeating bitwise.
+    them: K1 and K1′ at the LiDAR PLANE step (262144 x 2048) under phase
+    2's rule (every rid equal to the twin's), K7 plane there (cq 192, cb
+    256) and K3 at the 16x POINT step, each P within 1e-4 of max|P| and
+    repeating bitwise.
 3d. The reference's LiDAR gate: PLANE at m 262144, n_r 2048 with
     normal_mode "knn" (the RBC estimator) within 1.0 mm and 0.05 deg, K9
     and K8 launched, K1, K2 and K7 at least k times; the estimator on the
@@ -91,11 +95,13 @@ bin_knn_moments) adds, on the reference's wavy-surface pairs
 
 The line before the last is {"kernels": [...]}: per kernel its launches on
 the main path, its largest error against the twin over every shape checked
-(and, for K1, K2, K3 and K7, max_abs_err_16x at the 16x shape apart), its
+(and, for K1, K1′, K2, K3 and K7, max_abs_err_16x at the 16x shape apart), its
 time and the twin's, and its
 bound, the larger of the fp32 operations of the work over 67 TFLOP/s (no
-kernel uses the tensor cores) and its bytes (each input read once, each
-output written once) over 3.35 TB/s; library_ms is null, since no single
+kernel uses the tensor cores; K3, K4 and K7 count the pairs of valid query
+slots and finite bin slots) and its bytes (each input read once, each
+output written once) over 3.35 TB/s; K1, K3 and K7 add ms_16x and
+bound_ms_16x at the 16x step shape. library_ms is null, since no single
 PyTorch call computes any of these functions. The last line is
 {"ok": true, "device": {...}}.
 """
@@ -107,15 +113,13 @@ import json
 import subprocess
 import sys
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
 
-ROOT = Path(__file__).resolve().parent
 M, N_R = 16384, 256
 ALPHA = 2e2  # the benchmark's blend (bench.py)
-# Ground truth of __graft_entry__._synthetic_pair: +0.02 rad about z and
+# Ground truth of icp_tpu_torch.sensors.synthetic.synthetic_pair: +0.02 rad about z and
 # t = (8, -5, 3) mm, for any seed.
 Q_GT = np.array([0.0, 0.0, np.sin(0.01), np.cos(0.01)])
 T_GT = np.array([8.0, -5.0, 3.0])
@@ -206,34 +210,53 @@ def _capture(module, name: str, call):
 
 
 def _check_rep_assign(fs, moving8, C, srow, what: str) -> tuple:
-    """K1 against its twin: counts equal the bincount of the kernel's own
-    rids and sum to m; rid agreement >= 99.9 %, every differing pick a
-    float64 near-tie. Returns (rid, counts, max|dcounts| against the twin)."""
+    """K1 and K1′ against their twin: counts equal the bincount of the
+    kernel's own rids, sum to m and equal the twin's; K1's rid equal to the
+    twin's on every row (the same lane-order rounding) and K1′'s equal to
+    K1's. Returns (rid, counts, max|dcounts| against the twin, rids of K1′
+    off the twin)."""
     m, n_r = moving8.shape[0], C.shape[1]
     rid_k, counts_k = fs.rep_assign_counts(moving8, C, srow)
+    rid_1 = fs.rep_assign(moving8, C, srow)
     rid_t, counts_t = fs.rep_assign_counts_ref(moving8, C, srow)
     torch.cuda.synchronize()
     if not torch.equal(counts_k, torch.bincount(rid_k, minlength=n_r).to(torch.int32)):
         raise AssertionError(f"K1 {what}: counts != bincount(rid)")
     if int(counts_k.sum()) != m:
         raise AssertionError(f"K1 {what}: counts sum {int(counts_k.sum())} != {m}")
-    diff = rid_k != rid_t
-    agree = 1.0 - float(diff.float().mean())
+    n_diff = int((rid_k != rid_t).sum())
+    n_diff1 = int((rid_1 != rid_t).sum())
+    print(f"K1 rep_assign_counts {what} ({m} x {n_r}): {n_diff} of {m} rids differ "
+          f"from the twin (bound 0), counts equal to the twin's: "
+          f"{torch.equal(counts_k, counts_t)}; K1' rep_assign: {n_diff1} differ, "
+          f"equal to K1's: {torch.equal(rid_1, rid_k)}", flush=True)
+    if n_diff or not torch.equal(counts_k, counts_t):
+        raise AssertionError(f"K1 {what}: {n_diff} rids differ from the twin")
+    if not torch.equal(rid_1, rid_k):
+        raise AssertionError(f"K1' {what}: rid differs from K1's")
+    return rid_k, counts_k, int((counts_k - counts_t).abs().max()), n_diff1
+
+
+def _check_moments(what: str, kernel, twin, args, kwargs) -> float:
+    """A moment kernel (K3, K7) against its twin: every output within 1e-4
+    of its largest entry, and a second launch bitwise equal to the first.
+    Returns max|dP|."""
+    got, want, again = kernel(*args, **kwargs), twin(*args, **kwargs), kernel(*args, **kwargs)
+    torch.cuda.synchronize()
+    if isinstance(got, torch.Tensor):
+        got, want, again = (got,), (want,), (again,)
     worst = 0.0
-    if bool(diff.any()):  # the score in float64 on the differing rows
-        rows = torch.nonzero(diff)[:, 0]
-        s64 = srow.double() - 2.0 * (moving8[rows].double() @ C.double())
-        best64 = s64.min(dim=1).values
-        picked = s64.gather(1, rid_k[rows].long()[:, None])[:, 0]
-        worst = float(((picked - best64) / best64.abs().clamp(min=1.0)).max())
-    print(f"K1 rep_assign_counts {what} ({m} x {n_r}): rid agreement {agree:.6f} "
-          f"({int(diff.sum())} of {m} differ), worst float64 excess of a "
-          f"differing pick {worst:.3e}", flush=True)
-    if agree < 0.999:
-        raise AssertionError(f"K1 {what}: rid agreement {agree} < 0.999")
-    if worst > 1e-5:
-        raise AssertionError(f"K1 {what}: differing pick is not a near-tie: {worst}")
-    return rid_k, counts_k, int((counts_k - counts_t).abs().max())
+    for name, g, w, a in zip(("P", "P_z"), got, want, again):
+        err, scale = _rel_err(g, w)
+        worst = max(worst, err)
+        print(f"{what} {name}: max|d{name}| {err:.4e} vs max|{name}| {scale:.4e} (ratio "
+              f"{err / scale:.3e}, bound 1e-4); repeats bitwise: {torch.equal(g, a)}",
+              flush=True)
+        if not err <= 1e-4 * scale:
+            raise AssertionError(f"{what} {name} disagrees with its twin")
+        if not torch.equal(g, a):
+            raise AssertionError(f"{what} {name} does not repeat bitwise")
+    return worst
 
 
 def _bitwise(got, want) -> bool:
@@ -263,8 +286,10 @@ def _work(name: str, args, kwargs, out) -> tuple[float, int]:
     and write each output once; the operations are counted from the inner
     loops. A bf16x3 score over 8 lanes is three 15-operation lane products,
     2 adds, the scaled subtraction and a compare (50 per query-candidate
-    pair); over 3 lanes 21. Per query or per neighbour terms are added
-    where the kernel has them."""
+    pair; an FMA counts as two); over 3 lanes 21. Per query or per
+    neighbour terms are added where the kernel has them. K3, K4 and K7
+    count the pairs their inputs hold: valid query slots times the finite
+    slots of their bin."""
     nbytes = sum(t.numel() * t.element_size() for t in _tensors((args, kwargs, out)))
     a = args
     if name in ("rep_assign_counts", "rep_assign"):
@@ -281,9 +306,12 @@ def _work(name: str, args, kwargs, out) -> tuple[float, int]:
         n_r, cq = a[0].shape[:2]     # 40 per admitted neighbour
         ops = 60 * n_r * cq * a[1].shape[1] + 40 * float(out[1].sum()) + 100 * n_r * cq
     else:  # K3, K4, K7: the search, then per query the transform and rows
-        n_r, cq = a[0].shape[:2]
-        cb = a[4 if name == "bin_gn_moments" else 3].shape[1]
-        ops = 50 * n_r * cq * cb + 400 * n_r * cq
+        gn = name == "bin_gn_moments"
+        kept = (a[2 if gn else 1] != 0).sum(dim=1).double()
+        live = torch.isfinite(a[5 if gn else 4]).sum(dim=1).double()
+        # Pairs the data needs: each valid query slot (qvalid != 0) against
+        # the finite slots of its bin, not every padded slot.
+        ops = 50 * float((kept * live).sum()) + 400 * float(kept.sum())
     return float(ops), nbytes
 
 
@@ -328,8 +356,6 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs an NVIDIA GPU")
-    sys.path.insert(0, str(ROOT))
-    from __graft_entry__ import _synthetic_pair
     from icp_tpu_torch import (Correspondence, ICPConfig, ICPParams, Objective,
                                RobustKernel, Weighting, icp_step, register)
     from icp_tpu_torch.icp.quaternion import qrotate
@@ -349,6 +375,7 @@ def main() -> None:
     from icp_tpu_torch.ops.sampling import sample_representative_indices
     from icp_tpu_torch.rbc import grouping
     from icp_tpu_torch.rbc import search as search_mod
+    from icp_tpu_torch.sensors.synthetic import synthetic_pair as _synthetic_pair
     from icp_tpu_torch.sensors.synthetic import wavy_surface_pair
 
     dev = torch.device("cuda", 0)
@@ -381,7 +408,7 @@ def main() -> None:
     C, srow = fs.prep_rep_assign(index.reps, alpha, G, b_row)
     C = C.contiguous()
 
-    rid_k, counts_k, k1_err = _check_rep_assign(fs, moving, C, srow, "flagship")
+    rid_k, counts_k, k1_err, k1p_err = _check_rep_assign(fs, moving, C, srow, "flagship")
 
     sidx, counts, offsets, valid = grouping.bin_sort_layout(
         rid_k, N_R, cfg.query_capacity, counts=counts_k)
@@ -397,16 +424,8 @@ def main() -> None:
     qvalid = valid.to(torch.float32)
     k3_args = (table_k, qvalid, index.reps, index.bins_centered,
                index.sq_b_masked, G, b_row, alpha)
-    P_k = fs.bin_point_moments(*k3_args, weighted=True)
-    P_t = fs.bin_point_moments_ref(*k3_args, weighted=True)
-    torch.cuda.synchronize()
-    k3_err = float((P_k - P_t).abs().max())
-    k3_scale = float(P_t.abs().max())
-    print(f"K3 bin_point_moments: max|dP| {k3_err:.4e} vs max|P| "
-          f"{k3_scale:.4e} (ratio {k3_err / k3_scale:.3e}, bound 1e-4)",
-          flush=True)
-    if not k3_err <= 1e-4 * k3_scale:
-        raise AssertionError("K3 disagrees with its twin")
+    k3_err = _check_moments("K3 bin_point_moments flagship", fs.bin_point_moments,
+                            fs.bin_point_moments_ref, k3_args, {"weighted": True})
 
     # ---- 2b. Slice-2 kernels against their twins, rendered pair ------------
     la, lb, lb_dirty = _rendered_pair()
@@ -444,22 +463,8 @@ def main() -> None:
              index_p.bins_vals12, index_p.sq_b_masked, Gp, bp, alpha)
         kw = dict(mode=mode, weighted=True, gicp_eps=1e-3)
         gn_args[mode] = (a, kw)
-        out_k = fg.bin_gn_moments(*a, **kw)
-        out_t = fg.bin_gn_moments_ref(*a, **kw)
-        again = fg.bin_gn_moments(*a, **kw)
-        torch.cuda.synchronize()
-        pairs = zip(("P", "P_z"), *((o if mode == "gicp" else (o,))
-                                    for o in (out_k, out_t, again)))
-        for name, got, want, rep in pairs:
-            err, scale = _rel_err(got, want)
-            k7_err = max(k7_err, err)
-            print(f"K7 bin_gn_moments {mode} {name}: max|d{name}| {err:.4e} vs "
-                  f"max|{name}| {scale:.4e} (ratio {err / scale:.3e}, bound 1e-4); "
-                  f"repeats bitwise: {torch.equal(got, rep)}", flush=True)
-            if not err <= 1e-4 * scale:
-                raise AssertionError(f"K7 {mode} {name} disagrees with its twin")
-            if not torch.equal(got, rep):
-                raise AssertionError(f"K7 {mode} {name} does not repeat bitwise")
+        k7_err = max(k7_err, _check_moments(f"K7 bin_gn_moments {mode}", fg.bin_gn_moments,
+                                            fg.bin_gn_moments_ref, a, kw))
 
     # A fixed robust scale at the median residual of the first iteration,
     # so about half of the pairs sit on each side of it.
@@ -471,25 +476,12 @@ def main() -> None:
         a = (mg8, qv) + search
         kw = dict(weighted=weighted, robust=robust, robust_delta=delta)
         k3r_args[robust] = (a, kw)
-        P_k = fs.bin_point_moments(*a, **kw)
-        P_t = fs.bin_point_moments_ref(*a, **kw)
-        torch.cuda.synchronize()
-        err, scale = _rel_err(P_k, P_t)
-        k3r_err = max(k3r_err, err)
-        print(f"K3 bin_point_moments {robust} (delta {delta:.4f}): max|dP| "
-              f"{err:.4e} vs max|P| {scale:.4e} (ratio {err / scale:.3e}, "
-              f"bound 1e-4)", flush=True)
-        if not err <= 1e-4 * scale:
-            raise AssertionError(f"K3 {robust} disagrees with its twin")
+        k3r_err = max(k3r_err, _check_moments(
+            f"K3 bin_point_moments {robust} (delta {delta:.4f})", fs.bin_point_moments,
+            fs.bin_point_moments_ref, a, kw))
 
     # ---- 2c. Slices 3-4: K1′, K5 and K6 against their twins ----------------
-    rid1 = fs.rep_assign(moving, C, srow)
-    rid1_t = fs.rep_assign_ref(moving, C, srow)
-    torch.cuda.synchronize()
-    print(f"K1' rep_assign: rid bitwise equal to its twin: {torch.equal(rid1, rid1_t)}, "
-          f"to K1's: {torch.equal(rid1, rid_k)}", flush=True)
-    if not (torch.equal(rid1, rid1_t) and torch.equal(rid1, rid_k)):
-        raise AssertionError("K1' rid differs from its twin or from K1's")
+    # (K1′ is held against its twin and K1 with K1, in _check_rep_assign.)
 
     prm_d = params.to(dev)
     cfg_u = ICPConfig(fused_point=False)
@@ -517,6 +509,18 @@ def main() -> None:
               f"slots; scores and payloads bitwise: {ok}", flush=True)
         if not ok:
             raise AssertionError(f"K5 {name} differs from its twin")
+
+    # K3 with few, large bins, where it walks several query and bin tiles:
+    # n_r 32 gives cq 768 / cb 1024, n_r 16 cq 1536 / cb 2048.
+    k3c_err = 0.0
+    for n_r in (32, 16):
+        cfg_k = ICPConfig(n_r=n_r)
+        a, kw = _capture(search_mod, "bin_point_moments", lambda: icp_step(
+            st0, moving, build_index(fixed, prm_d, cfg_k), prm_d, cfg_k))
+        k3c_err = max(k3c_err, _check_moments(
+            f"K3 bin_point_moments n_r={n_r} (cq {cfg_k.query_capacity}, "
+            f"cb {cfg_k.bin_capacity})", fs.bin_point_moments, fs.bin_point_moments_ref,
+            a, kw))
 
     cfg_b = ICPConfig(correspondence=Correspondence.BRUTE)
     k6_args = _capture(distance_mod, "brute_nn", lambda: icp_step(
@@ -627,24 +631,15 @@ def main() -> None:
         st0, wm, build_index(wf, prm_d, cfg_16x), prm_d, cfg_16x))
     del index_l
     err16 = {"bin_table": 0.0}  # K2 at 16x is bitwise (2d)
-    err16["rep_assign_counts"] = _check_rep_assign(fs, *k1x_args[0], "LiDAR step")[2]
+    _, _, err16["rep_assign_counts"], err16["rep_assign"] = _check_rep_assign(
+        fs, *k1x_args[0], "LiDAR step")
     for name, kernel, twin, (a, kw) in (
             ("bin_gn_moments", fg.bin_gn_moments, fg.bin_gn_moments_ref, k7x_args),
             ("bin_point_moments", fs.bin_point_moments, fs.bin_point_moments_ref,
              k3x_args)):
-        got, want, again = kernel(*a, **kw), twin(*a, **kw), kernel(*a, **kw)
-        torch.cuda.synchronize()
-        err, scale = _rel_err(got, want)
-        err16[name] = err
         cb = a[4 if name == "bin_gn_moments" else 3].shape[1]
-        print(f"{name} 16x (mg {tuple(a[0].shape)}, cb {cb}, "
-              f"{kw}): max|dP| {err:.4e} vs max|P| {scale:.4e} (ratio "
-              f"{err / scale:.3e}, bound 1e-4); repeats bitwise: "
-              f"{torch.equal(got, again)}", flush=True)
-        if not err <= 1e-4 * scale:
-            raise AssertionError(f"{name} at 16x disagrees with its twin")
-        if name == "bin_gn_moments" and not torch.equal(got, again):
-            raise AssertionError("K7 at 16x does not repeat bitwise")
+        err16[name] = _check_moments(f"{name} 16x (mg {tuple(a[0].shape)}, cb {cb}, {kw})",
+                                     kernel, twin, a, kw)
 
     # ---- 3. The slice: three flagship registrations ------------------------
     counters = {"rep_assign_counts": fs.rep_assign_counts,
@@ -1044,13 +1039,12 @@ def main() -> None:
         "rep_assign_counts": ("icp_tpu_torch/csrc/rep_assign_counts.cu",
                               "icp_tpu/kernels/fused_step.py:372", k1_err),
         "rep_assign": ("icp_tpu_torch/csrc/rep_assign_counts.cu",
-                       "icp_tpu/kernels/fused_step.py:286",
-                       int((rid1 != rid1_t).sum())),
+                       "icp_tpu/kernels/fused_step.py:286", k1p_err),
         "bin_table": ("icp_tpu_torch/csrc/bin_table.cu",
                       "icp_tpu/kernels/table_build.py:79", k2_err),
         "bin_point_moments": ("icp_tpu_torch/csrc/bin_point_moments.cu",
                               "icp_tpu/kernels/fused_step.py:564",
-                              max(k3_err, k3r_err)),
+                              max(k3_err, k3r_err, k3c_err)),
         "bin_min_dists": ("icp_tpu_torch/csrc/bin_min_dists.cu",
                           "icp_tpu/kernels/fused_step.py:689", k4_err),
         "bin_search": ("icp_tpu_torch/csrc/bin_search.cu",
@@ -1071,13 +1065,19 @@ def main() -> None:
         slow = max(modes, key=lambda t: t[0])
         times[name] = (slow[0], max(t[1] for t in modes), slow[2], slow[3])
     # max_abs_err is the largest over every shape checked; the kernels the
-    # 16x paths run also give their error there apart (max_abs_err_16x).
+    # 16x paths run also give their error there apart (max_abs_err_16x), and
+    # K1, K3 and K7 their time and bound at the 16x step shape.
+    at16 = {"rep_assign_counts": "rep_assign_counts@16x",
+            "bin_point_moments": "bin_point_moments@16x",
+            "bin_gn_moments": "bin_gn_moments@16x plane"}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": max(err, err16.get(name, 0)),
                 "ms": times[name][0], "plain_ms": times[name][1],
                 "bound_ms": times[name][2], "bound_by": times[name][3],
                 "library_ms": None}
                | ({"max_abs_err_16x": err16[name]} if name in err16 else {})
+               | ({"ms_16x": times[at16[name]][0], "bound_ms_16x": times[at16[name]][2]}
+                  if name in at16 else {})
                for name, (src, rep, err) in meta.items()]
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

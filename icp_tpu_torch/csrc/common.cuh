@@ -5,12 +5,13 @@
 // contracts into an FMA: the kernels then round exactly where the plain
 // PyTorch twins (icp_tpu_torch/kernels/fused_step.py, lane_dot and dot3) do,
 // one rounding per multiply and per add in lane order, and kernel and twin
-// make bit-identical nearest-neighbour decisions.
+// make bit-identical nearest-neighbour decisions. dot3_8_fma reaches the
+// same bits with explicit __fmaf_rn where every product is exact.
 //
-// The per-bin search below is shared by K3 (bin_point_moments.cu), K4
-// (bin_min_dists.cu) and K7 (bin_gn_moments.cu), so the three kernels round
-// their scores identically: it is the JAX package's _score_core /
-// _search_core (icp_tpu/kernels/fused_step.py:449-517).
+// The per-bin search below is shared by K4 (bin_min_dists.cu) and K7
+// (bin_gn_moments.cu); K3 (bin_point_moments.cu) runs its own loop on
+// dot3_8_fma with the same scores, bit for bit: it is the JAX package's
+// _score_core / _search_core (icp_tpu/kernels/fused_step.py:449-517).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -52,6 +53,36 @@ __device__ __forceinline__ float dot3_8(const float* a_hi, const float* a_lo,
   const float hl = lane_dot<8>(a_hi, b_lo, stride);
   const float lh = lane_dot<8>(a_lo, b_hi, stride);
   return __fadd_rn(__fadd_rn(hh, hl), lh);
+}
+
+// dot3_8 with fused multiply-adds, bit for bit dot3_8's value (stride 1).
+//
+// Every product of a bf16x3 score is a bf16 value times a bf16 value: two
+// 8-bit significands multiply to at most 16 bits, so the float32 product is
+// exact (the scores' operands stay far from float32's under- and overflow).
+// __fmaf_rn(a, b, acc) rounds a * b + acc once, and so does
+// __fadd_rn(__fmul_rn(a, b), acc) when __fmul_rn(a, b) is exact: each lane
+// sum is one __fmul_rn and seven __fmaf_rn in lane order, equal to
+// lane_dot<8>, and the three sums join in dot3_8's order. An explicit
+// __fmaf_rn leaves nothing to the compiler's contraction.
+__device__ __forceinline__ float dot3_8_fma(const float a_hi[8], const float a_lo[8],
+                                            const float b_hi[8], const float b_lo[8]) {
+  float hh = __fmul_rn(a_hi[0], b_hi[0]);
+  float hl = __fmul_rn(a_hi[0], b_lo[0]);
+  float lh = __fmul_rn(a_lo[0], b_hi[0]);
+#pragma unroll
+  for (int k = 1; k < 8; ++k) {
+    hh = __fmaf_rn(a_hi[k], b_hi[k], hh);
+    hl = __fmaf_rn(a_hi[k], b_lo[k], hl);
+    lh = __fmaf_rn(a_lo[k], b_hi[k], lh);
+  }
+  return __fadd_rn(__fadd_rn(hh, hl), lh);
+}
+
+// sq - 2 * cross with one rounding: 2 * cross is exact, so this equals
+// __fsub_rn(sq, __fmul_rn(2.0f, cross)) bit for bit.
+__device__ __forceinline__ float score_fma(float sq, float cross) {
+  return __fmaf_rn(-2.0f, cross, sq);
 }
 
 // Shared-memory staging of one bin, done by the whole block: the bf16 halves

@@ -144,6 +144,7 @@ def rep_assign(moving8: torch.Tensor, C: torch.Tensor,
     m = moving8.shape[0]
     n_r = C.shape[1]
     native.require(moving8, "moving8", (m, 8), torch.float32, dev)
+    native.require_aligned(moving8, "moving8")
     native.require(C, "C", (8, n_r), torch.float32, dev)
     native.require(srow, "srow", (1, n_r), torch.float32, dev)
     rid = torch.empty((m,), dtype=torch.int32, device=dev)
@@ -186,6 +187,7 @@ def rep_assign_counts(moving8: torch.Tensor, C: torch.Tensor,
     m = moving8.shape[0]
     n_r = C.shape[1]
     native.require(moving8, "moving8", (m, 8), torch.float32, dev)
+    native.require_aligned(moving8, "moving8")
     native.require(C, "C", (8, n_r), torch.float32, dev)
     native.require(srow, "srow", (1, n_r), torch.float32, dev)
     rid = torch.empty((m,), dtype=torch.int32, device=dev)

@@ -135,6 +135,8 @@ def load_library() -> ctypes.CDLL:
         with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
             log = _build(Path(tmp), lib_path)
         (out_dir / "build.log").write_text(log)
+    elif (out_dir / "build.log").exists():  # built by an earlier process
+        log = (out_dir / "build.log").read_text()
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
@@ -185,6 +187,12 @@ def require_rows(t: torch.Tensor, name: str, shape: tuple, dtype: torch.dtype,
     if t.stride(2) != 1 or ld < shape[2] or t.stride(0) != ld * shape[1]:
         raise ValueError(f"{name}: rows must be packed, got strides {t.stride()}")
     return ld
+
+
+def require_aligned(t: torch.Tensor, name: str, nbytes: int = 16) -> None:
+    """A kernel that reads ``t`` in 16-byte vectors needs its data there."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name}: data must be {nbytes}-byte aligned")
 
 
 def require_cuda(t: torch.Tensor, name: str) -> None:

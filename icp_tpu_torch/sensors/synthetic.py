@@ -4,8 +4,9 @@
 An analytic ray-traced scene (textured planes + spheres) rendered through
 the reference's pinhole model from any camera pose, so frame pairs come with
 exact ground-truth transforms. One vectorized pass renders all 640 x 480
-rays. Millimeters, camera looking down +z. :func:`wavy_surface_pair` makes
-the unorganized ground-truth pairs of the scaled-shape gates in numpy.
+rays. Millimeters, camera looking down +z. :func:`synthetic_pair` (the
+flagship landmark pair) and :func:`wavy_surface_pair` (the unorganized
+ground-truth pairs of the scaled-shape gates) are made in numpy.
 """
 
 from __future__ import annotations
@@ -131,6 +132,29 @@ def render_cloud(scene: Scene, pose: CameraPose) -> torch.Tensor:
     registering frame B to frame A recovers the relative pose A_from_B."""
     depth, rgb = render(scene, pose)
     return backproject(depth, rgb)
+
+
+def synthetic_pair(m: int, seed: int = 0):
+    """Kinect-like 8-D landmark pair (random wavy surface + colour), numpy
+    only: fixed and moving (m, 8) float32, the moving cloud the fixed one
+    moved by +0.02 rad about z and t = (8, -5, 3) mm. Bitwise the pair of
+    ``__graft_entry__._synthetic_pair`` of the JAX package's entry module.
+    """
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(-400, 400, m).astype(np.float32)
+    v = rng.uniform(-300, 300, m).astype(np.float32)
+    z = 1500 + 80 * np.sin(u / 90) + 60 * np.cos(v / 70)
+    cloud = np.ones((m, 8), np.float32)
+    cloud[:, :3] = np.stack([u, v, z], -1)
+    cloud[:, 4] = 0.5 + 0.5 * np.sin(u / 40)
+    cloud[:, 5] = 0.5 + 0.5 * np.cos(v / 55)
+    cloud[:, 6] = np.clip((z - 1350) / 300.0, 0, 1)
+    ang = 0.02
+    ca, sa = np.cos(ang), np.sin(ang)
+    R = np.array([[ca, -sa, 0], [sa, ca, 0], [0, 0, 1]], np.float32)
+    moving = cloud.copy()
+    moving[:, :3] = (cloud[:, :3] - np.array([8, -5, 3], np.float32)) @ R
+    return cloud, moving
 
 
 def wavy_surface_pair(m: int, seed_a: int = 1, seed_b: int = 2,

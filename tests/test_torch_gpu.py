@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from __graft_entry__ import _synthetic_pair
+from icp_tpu_torch.sensors.synthetic import synthetic_pair
 
 pytestmark = pytest.mark.cuda
 
@@ -29,7 +29,7 @@ def flagship():
     from icp_tpu_torch.kernels import fused_step as fs
 
     dev = torch.device("cuda", 0)
-    fixed, moving = (torch.from_numpy(a).to(dev) for a in _synthetic_pair(M))
+    fixed, moving = (torch.from_numpy(a).to(dev) for a in synthetic_pair(M))
     cfg = ICPConfig()
     params = ICPParams(alpha=2e2).to(dev)
     index = build_index(fixed, params, cfg)
@@ -89,6 +89,76 @@ def test_bin_point_moments_kernel_matches_twin(flagship, weighted):
     torch.cuda.synchronize()
     assert float((P - P_t).abs().max()) <= 1e-4 * float(P_t.abs().max())
     assert torch.equal(P, fs.bin_point_moments(*args, weighted=weighted))
+
+
+def _k3_args(f, rid):
+    from icp_tpu_torch.rbc.grouping import group_rows_by_bin
+
+    gl = group_rows_by_bin(rid, N_R, f["cfg"].query_capacity, (f["moving"],))
+    return (gl.grouped[0], gl.valid.to(torch.float32), f["index"].reps,
+            f["index"].bins_centered, f["index"].sq_b_masked.clone(), f["G"],
+            f["b_row"], f["params"].alpha)
+
+
+@pytest.mark.parametrize("case", ["masked_bin", "overfull_bin"])
+def test_bin_point_moments_kernel_edge_bins(flagship, case):
+    """K3 on a bin with every slot masked (+inf: its P is exactly 0) and on
+    a bin holding more queries than its capacity (every query slot valid):
+    within 1e-4 of max|P| of the twin's, and repeating bitwise."""
+    from icp_tpu_torch.kernels import fused_step as fs
+
+    f = flagship
+    rid, _ = fs.rep_assign_counts(f["moving"], f["C"], f["srow"])
+    if case == "overfull_bin":
+        rid = rid.clone()
+        rid[:500] = 7
+    args = _k3_args(f, rid)
+    if case == "masked_bin":
+        args[4][5] = float("inf")
+    else:
+        assert bool((args[1][7] == 1).all())
+    P = fs.bin_point_moments(*args, weighted=True)
+    P_t = fs.bin_point_moments_ref(*args, weighted=True)
+    again = fs.bin_point_moments(*args, weighted=True)
+    torch.cuda.synchronize()
+    assert float((P - P_t).abs().max()) <= 1e-4 * float(P_t.abs().max())
+    assert torch.equal(P, again)
+    if case == "masked_bin":
+        assert bool((P[5] == 0).all()) and bool((P_t[5] == 0).all())
+
+
+@pytest.mark.parametrize("n_r, cq, cb", [(32, 768, 1024), (16, 1536, 2048),
+                                         (8, 3072, 4096)])
+def test_bin_point_moments_kernel_at_large_capacities(cuda_dev, n_r, cq, cb):
+    """K3 on what the first fused POINT step of the flagship pair hands it
+    with few, large bins, where the kernel walks several query tiles and
+    (from cb 1024) several bin tiles: within 1e-4 of max|P| of the twin's,
+    repeating bitwise."""
+    from icp_tpu_torch import ICPConfig, ICPParams, icp_step
+    from icp_tpu_torch.icp.run import build_index
+    from icp_tpu_torch.icp.state import identity_state
+    from icp_tpu_torch.kernels import fused_step as fs
+    from icp_tpu_torch.rbc import search
+
+    fixed, moving = (torch.from_numpy(a).to(cuda_dev) for a in synthetic_pair(M))
+    cfg = ICPConfig(m=M, n_r=n_r)
+    assert (cfg.query_capacity, cfg.bin_capacity) == (cq, cb)
+    params = ICPParams(alpha=2e2).to(cuda_dev)
+    seen = []
+    real = search.bin_point_moments
+    search.bin_point_moments = lambda *a, **kw: seen.append((a, kw)) or real(*a, **kw)
+    try:
+        icp_step(identity_state(torch.float32, cuda_dev), moving,
+                 build_index(fixed, params, cfg), params, cfg)
+    finally:
+        search.bin_point_moments = real
+    a, kw = seen[0]
+    got = fs.bin_point_moments(*a, **kw)
+    want = fs.bin_point_moments_ref(*a, **kw)
+    again = fs.bin_point_moments(*a, **kw)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert torch.equal(got, again)
 
 
 def test_register_on_card_matches_cpu(flagship):
@@ -360,7 +430,7 @@ def test_unfused_register_on_card_matches_cpu(rendered, d):
 
 def _top2_agreement(p, reps, got, want):
     """(ids that differ, worst float64 excess of a differing pick relative to
-    the score's magnitude): K1's near-tie rule on the raw score
+    the score's magnitude): the near-tie rule on the raw score
     |r|^2 - 2 p.r."""
     r64 = reps.double()
     s64 = torch.sum(r64 * r64, dim=1)[None, :] - 2.0 * (p.double() @ r64.T)
@@ -516,30 +586,83 @@ def step16x(cuda_dev):
 
 
 def test_rep_assign_counts_kernel_at_the_16x_shape(step16x):
-    """K1 at n_r 2048 (the 147 KB shared-memory opt-in) on the LiDAR step's
-    tensors: counts equal the bincount of its own rids; rids equal to the
-    twin's, or each difference a float64 near-tie."""
+    """K1 at n_r 2048 (eight staged chunks of reps) on the LiDAR step's
+    tensors: counts equal the bincount of its own rids and the twin's; every
+    rid equal to the twin's (the same lane-order rounding)."""
     from icp_tpu_torch.kernels import fused_step as fs
 
     (moving8, C, srow), _ = step16x["rep_assign_counts"]
     assert tuple(C.shape) == (8, 2048)
     rid, counts = fs.rep_assign_counts(moving8, C, srow)
-    rid_t, _ = fs.rep_assign_counts_ref(moving8, C, srow)
+    rid_t, counts_t = fs.rep_assign_counts_ref(moving8, C, srow)
     torch.cuda.synchronize()
     assert torch.equal(counts, torch.bincount(rid, minlength=2048).to(torch.int32))
-    diff = torch.nonzero(rid != rid_t)[:, 0]
-    assert diff.numel() <= 0.001 * rid.numel()
-    if diff.numel():
-        s64 = srow.double() - 2.0 * (moving8[diff].double() @ C.double())
-        best = s64.min(dim=1).values
-        picked = s64.gather(1, rid[diff].long()[:, None])[:, 0]
-        assert float(((picked - best) / best.abs().clamp(min=1.0)).max()) <= 1e-5
+    assert torch.equal(rid, rid_t) and torch.equal(counts, counts_t)
+
+
+def test_rep_assign_kernel_equals_k1_at_the_16x_shape(step16x):
+    """K1′ (the kCounts = false instance) gives K1's rid at 262144 x 2048."""
+    from icp_tpu_torch.kernels import fused_step as fs
+
+    (moving8, C, srow), _ = step16x["rep_assign_counts"]
+    rid1 = fs.rep_assign(moving8, C, srow)
+    rid, _ = fs.rep_assign_counts(moving8, C, srow)
+    torch.cuda.synchronize()
+    assert torch.equal(rid1, rid)
+
+
+def _k1_tensors(dev, m, n_r, planted=False):
+    """K1's arguments for m moving rows of the synthetic pair against n_r of
+    its fixed rows as reps (identity transform). With ``planted``, reps 7,
+    40 and n_r - 1 are copies of rep 3 and rep n_r // 2 of rep n_r // 2 - 1
+    (columns of C and srow copied exactly), and the first 64 rows sit on
+    rep 3 and the next 64 on rep n_r // 2 - 1."""
+    from icp_tpu_torch.icp.state import identity_state
+    from icp_tpu_torch.kernels import fused_step as fs
+
+    fixed, moving = synthetic_pair(max(m, n_r), seed=3)
+    g = np.random.default_rng(1)
+    reps = torch.from_numpy(fixed[g.choice(fixed.shape[0], n_r, replace=False)])
+    moving = torch.from_numpy(moving[:m].copy())
+    st = identity_state(torch.float32, torch.device("cpu"))
+    G, b_row = fs.prep_similarity(st.q, st.t, st.s)
+    C, srow = fs.prep_rep_assign(reps, torch.tensor(2e2), G, b_row)
+    C, srow = C.contiguous(), srow.contiguous()
+    if planted:
+        h = n_r // 2
+        for dst, src in ((7, 3), (40, 3), (n_r - 1, 3), (h, h - 1)):
+            C[:, dst] = C[:, src]
+            srow[0, dst] = srow[0, src]
+        moving[:64] = reps[3]
+        moving[64:128] = reps[h - 1]
+    return moving.to(dev), C.to(dev), srow.to(dev)
+
+
+@pytest.mark.parametrize("m, n_r, planted", [(4097, 300, False), (70001, 2000, False),
+                                             (4097, 300, True), (16384, 2048, True)])
+def test_rep_assign_counts_kernel_any_shape(cuda_dev, m, n_r, planted):
+    """K1 and K1′ at shapes that are no multiple of any tile (queries per
+    block, reps per stage), and with duplicated reps planted in different
+    stages and warps' spans: rids equal to the twin's, the lower index
+    winning every exact tie; counts exact."""
+    from icp_tpu_torch.kernels import fused_step as fs
+
+    moving, C, srow = _k1_tensors(cuda_dev, m, n_r, planted)
+    rid, counts = fs.rep_assign_counts(moving, C, srow)
+    rid1 = fs.rep_assign(moving, C, srow)
+    rid_t, counts_t = fs.rep_assign_counts_ref(moving, C, srow)
+    torch.cuda.synchronize()
+    assert torch.equal(rid, rid_t) and torch.equal(counts, counts_t)
+    assert torch.equal(rid1, rid)
+    assert int(counts.sum()) == m
+    if planted:
+        assert (rid[:64] == 3).all() and (rid[64:128] == n_r // 2 - 1).all()
 
 
 @pytest.mark.parametrize("name", ["bin_gn_moments", "bin_point_moments"])
 def test_moment_kernels_at_the_16x_shape(step16x, name):
     """K7 plane (LiDAR step) and K3 (16x POINT step) at cq 192, cb 256:
-    P within 1e-4 of max|P| of the twin's."""
+    P within 1e-4 of max|P| of the twin's, repeating bitwise."""
     from icp_tpu_torch.kernels import fused_gn as fg
     from icp_tpu_torch.kernels import fused_step as fs
 
@@ -548,9 +671,10 @@ def test_moment_kernels_at_the_16x_shape(step16x, name):
                                           fs.bin_point_moments_ref)}[name]
     a, kw = step16x[name]
     assert tuple(a[0].shape[:2]) == (2048, 192)
-    got, want = kernel(*a, **kw), twin(*a, **kw)
+    got, want, again = kernel(*a, **kw), twin(*a, **kw), kernel(*a, **kw)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert torch.equal(got, again)
 
 
 def test_knn_normals_rbc_on_card_matches_cpu(cuda_dev):

@@ -51,8 +51,17 @@ BRUTE with K6, and K1′) add:
     at n_r = 16 (cb = 2048): scores and payloads bitwise; K3 on what the
     fused step hands it at n_r 32 and 16 (cq 768 / 1536, cb 1024 / 2048:
     several query and bin tiles) within 1e-4 of max|P| and repeating
-    bitwise; K6 on the 16384 x 16384 BRUTE step: every index and score
-    bitwise.
+    bitwise; K7 (three modes) on what GICP steps hand it at n_r 32 and 16
+    under the same rule; K6 on the 16384 x 16384 BRUTE step: every index and
+    score bitwise, with the mean and largest number of pairs its filter
+    re-scored per query, and on the adversarial sets of sensors/brute_sets.py
+    (uncentred coordinates, duplicates, equal-distance shells, scores ulps
+    apart), bitwise. K6's margin probe, through its C entry point and not
+    counted as launches: on each of those sets the margin is cut by 2, 4,
+    8, ... (and to its floor) until an output differs from the twin's, and
+    the largest cut that kept every output bitwise is printed (the margin's
+    headroom on the card); and the sweep's time with no pair re-scored (a
+    margin of -inf) beside its time with the margin.
 2d. K2 at the 16x layout (262144 rows, 2048 bins, cap 256, d = 8 and 11),
     the shape of the windowed TPU variant, bitwise against its twin.
 3c. BRUTE POINT on the synthetic pair (seeds 0, 1, 2) within 0.05 mm and
@@ -79,8 +88,8 @@ bin_knn_moments) adds, on the reference's wavy-surface pairs
 2f. The per-step kernels of the 16x paths, on the arguments the steps hand
     them: K1 and K1′ at the LiDAR PLANE step (262144 x 2048) under phase
     2's rule (every rid equal to the twin's), K7 plane there (cq 192, cb
-    256) and K3 at the 16x POINT step, each P within 1e-4 of max|P| and
-    repeating bitwise.
+    256), K7 plane_sym and gicp at the LiDAR GICP step, and K3 at the 16x
+    POINT step, each P within 1e-4 of max|P| and repeating bitwise.
 3d. The reference's LiDAR gate: PLANE at m 262144, n_r 2048 with
     normal_mode "knn" (the RBC estimator) within 1.0 mm and 0.05 deg, K9
     and K8 launched, K1, K2 and K7 at least k times; the estimator on the
@@ -89,20 +98,25 @@ bin_knn_moments) adds, on the reference's wavy-surface pairs
     (the same zero set, |dn| <= 1e-4 on >= 99.9 % of rows); GICP with
     "knn_rbc" at 16384 points, and the reference's 4x and 16x POINT gates
     (65536 x 1024, 262144 x 2048), each within the gate.
-4d. Times: K9, K8, K7, K3 and K1 at the 16x shape against their twins, the
-    estimator's ms per call at 262144 points and the marginal ms per
-    iteration of the LiDAR PLANE registration and the 4x / 16x POINT cells.
+4d. Times: K9, K8, K7 (three modes), K3 and K1 at the 16x shape against
+    their twins, the estimator's ms per call at 262144 points and the
+    marginal ms per iteration of the LiDAR PLANE registration and the 4x /
+    16x POINT cells.
 
 The line before the last is {"kernels": [...]}: per kernel its launches on
 the main path, its largest error against the twin over every shape checked
 (and, for K1, K1′, K2, K3 and K7, max_abs_err_16x at the 16x shape apart), its
 time and the twin's, and its
-bound, the larger of the fp32 operations of the work over 67 TFLOP/s (no
-kernel uses the tensor cores; K3, K4 and K7 count the pairs of valid query
-slots and finite bin slots) and its bytes (each input read once, each
-output written once) over 3.35 TB/s; K1, K3 and K7 add ms_16x and
-bound_ms_16x at the 16x step shape. library_ms is null, since no single
-PyTorch call computes any of these functions. The last line is
+bound, the larger of the time of the operations of the work and of its
+bytes (each input read once, each output written once) over 3.35 TB/s. The
+operations are fp32 over 67 TFLOP/s (K3, K4 and K7 count the pairs of valid
+query slots and finite bin slots); K6's are the work of its design: 3 x 2 x
+8 TF32 flops per pair over 495 TFLOP/s, or its fp32 epilogue (the fma of the
+score and a min, 3 operations per pair) over 67 TFLOP/s, whichever takes
+longer. K1, K3 and K7 add ms_16x and bound_ms_16x at the 16x step shape, K6
+its re-scored pairs per query (mean and largest), the margin's headroom per
+set and the sweep's time with no re-score. library_ms is null, since
+no single PyTorch call computes any of these functions. The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -137,8 +151,9 @@ M_L, N_R_L = 262144, 2048  # the LiDAR gate and the 16x cell
 # port's scaled-shape gates: not targets.
 REFERENCE_SCALE = {"lidar": (0.0006, 1e-05), "icp_4x": (0.3154, 0.00957),
                    "icp_16x": (0.162, 0.00375)}
-# H100 SXM peaks (NVIDIA's data sheet): fp32 outside the tensor cores, HBM3.
-PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+# H100 SXM peaks (NVIDIA's data sheet, dense): fp32 outside the tensor
+# cores, TF32 on them, HBM3.
+PEAK_FP32, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12
 
 
 def _run(cmd: list[str]) -> str:
@@ -282,22 +297,25 @@ def _tensors(x) -> list:
 
 
 def _work(name: str, args, kwargs, out) -> tuple[float, int]:
-    """(fp32 operations, bytes) of one kernel call: the bytes read each input
-    and write each output once; the operations are counted from the inner
-    loops. A bf16x3 score over 8 lanes is three 15-operation lane products,
-    2 adds, the scaled subtraction and a compare (50 per query-candidate
-    pair; an FMA counts as two); over 3 lanes 21. Per query or per
-    neighbour terms are added where the kernel has them. K3, K4 and K7
-    count the pairs their inputs hold: valid query slots times the finite
-    slots of their bin."""
+    """(ms of the operations at the card's peak, bytes) of one kernel call:
+    the bytes read each input and write each output once; the operations are
+    counted from the inner loops. A bf16x3 score over 8 lanes is three
+    15-operation lane products, 2 adds, the scaled subtraction and a compare
+    (50 fp32 operations per query-candidate pair; an FMA counts as two);
+    over 3 lanes 21. Per query or per neighbour terms are added where the
+    kernel has them. K3, K4 and K7 count the pairs their inputs hold: valid
+    query slots times the finite slots of their bin. K6 scores every pair on
+    the tensor cores (three m16n8k8 TF32 products, 48 flops a pair) beside
+    an fp32 epilogue of 3 operations a pair."""
     nbytes = sum(t.numel() * t.element_size() for t in _tensors((args, kwargs, out)))
     a = args
     if name in ("rep_assign_counts", "rep_assign"):
         ops = 50 * a[0].shape[0] * a[1].shape[1]
     elif name == "bin_table":
         ops = 0
-    elif name == "brute_nn":  # full fp32: 8-lane product, score, compare
-        ops = 18 * a[0].shape[0] * a[1].shape[0]
+    elif name == "brute_nn":
+        pairs = a[0].shape[0] * a[1].shape[0]
+        return max(48 * pairs / PEAK_TF32, 3 * pairs / PEAK_FP32) * 1e3, nbytes
     elif name == "bin_search":
         ops = 50 * a[0].shape[0] * a[0].shape[1] * a[1].shape[1]
     elif name == "rep_top2_counts":
@@ -312,13 +330,44 @@ def _work(name: str, args, kwargs, out) -> tuple[float, int]:
         # Pairs the data needs: each valid query slot (qvalid != 0) against
         # the finite slots of its bin, not every padded slot.
         ops = 50 * float((kept * live).sum()) + 400 * float(kept.sum())
-    return float(ops), nbytes
+    return ops / PEAK_FP32 * 1e3, nbytes
 
 
-def _bound(ops: float, nbytes: int) -> tuple[float, str]:
+def _bound(t_ops: float, nbytes: int) -> tuple[float, str]:
     """(least ms the card could take, what bounds it)."""
-    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _brute_raw(native, args, kappa: float, floor: float):
+    """K6 through its C entry point with the margin's constants given
+    (eps_i = kappa (S + 2 A_i) + floor; the wrapper passes KAPPA 2^-20 and
+    MARGIN_FLOOR). Not a launch of the main path: the counter stays."""
+    qw, db, sq = args
+    m, n = qw.shape[0], db.shape[0]
+    ms = torch.empty((9,), dtype=torch.float32, device=qw.device)
+    idx = torch.empty((m,), dtype=torch.int32, device=qw.device)
+    score = torch.empty((m,), dtype=torch.float32, device=qw.device)
+    native.check(native.load_library().icp_brute_nn(
+        qw.data_ptr(), db.data_ptr(), sq.data_ptr(), ms.data_ptr(), kappa, floor, m, n,
+        idx.data_ptr(), score.data_ptr(), None, native.stream_ptr(qw.device)), "icp_brute_nn")
+    return idx, score
+
+
+def _margin_headroom(bn, native, args) -> dict:
+    """Cuts K6's margin by 2, 4, 8, ... 2^30, then to its floor alone
+    ("floor"), until an output differs from the twin's. Returns the largest
+    cut that kept every index and score bitwise ("floor" when even that
+    did), and the cut that first did not (None when none did)."""
+    idx_t, score_t = bn.brute_nn_ref(*args)
+    held = 1.0
+    for cut in [2.0 ** k for k in range(1, 31)] + ["floor"]:
+        kappa = 0.0 if cut == "floor" else bn.KAPPA * 2.0 ** -20 / cut
+        idx, score = _brute_raw(native, args, kappa, bn.MARGIN_FLOOR)
+        if not (torch.equal(idx, idx_t) and _bitwise(score, score_t)):
+            return {"held_to": held, "failed_at": cut}
+        held = cut
+    return {"held_to": held, "failed_at": None}
 
 
 def _analytic_normals(cloud8: np.ndarray) -> np.ndarray:
@@ -377,6 +426,7 @@ def main() -> None:
     from icp_tpu_torch.rbc import search as search_mod
     from icp_tpu_torch.sensors.synthetic import synthetic_pair as _synthetic_pair
     from icp_tpu_torch.sensors.synthetic import wavy_surface_pair
+    from icp_tpu_torch.sensors import brute_sets
 
     dev = torch.device("cuda", 0)
 
@@ -522,19 +572,59 @@ def main() -> None:
             f"cb {cfg_k.bin_capacity})", fs.bin_point_moments, fs.bin_point_moments_ref,
             a, kw))
 
+    # K7 likewise, on what GICP steps of the rendered pair hand it (every
+    # mode reads those tables; plane ignores the moving normals).
+    for n_r in (32, 16):
+        cfg_k = ICPConfig(n_r=n_r, objective=Objective.GICP, estimate_scale=False)
+        a, kw = _capture(search_mod, "bin_gn_moments", lambda: icp_step(
+            st0, lb_d, build_index(fa_d, prm_d, cfg_k), prm_d, cfg_k))
+        for mode in fg.GN_MODES:
+            am = (a[0], None if mode == "plane" else a[1]) + tuple(a[2:])
+            k7_err = max(k7_err, _check_moments(
+                f"K7 bin_gn_moments {mode} n_r={n_r} (cq {cfg_k.query_capacity}, "
+                f"cb {cfg_k.bin_capacity})", fg.bin_gn_moments, fg.bin_gn_moments_ref,
+                am, dict(kw, mode=mode)))
+
+    def check_brute(what, args) -> tuple[float, torch.Tensor]:
+        """K6 against its twin: every index equal, every score bitwise.
+        Returns (max|dscore| where finite, re-scored pairs per query)."""
+        idx_k, score_k, rescored = bn.brute_nn(*args, count_rescored=True)
+        idx_t, score_t = bn.brute_nn_ref(*args)
+        torch.cuda.synchronize()
+        same_idx = int((idx_k == idx_t).sum())
+        r = rescored.double()
+        print(f"K6 brute_nn {what} ({args[0].shape[0]} x {args[1].shape[0]}): idx equal on "
+              f"{same_idx} of {idx_k.numel()} queries, scores bitwise: "
+              f"{_bitwise(score_k, score_t)}; re-scored pairs per query: mean "
+              f"{float(r.mean())}, max {int(r.max())}", flush=True)
+        if not (same_idx == idx_k.numel() and _bitwise(score_k, score_t)):
+            raise AssertionError(f"K6 {what} differs from its twin")
+        return _finite_err(score_k, score_t), rescored
+
     cfg_b = ICPConfig(correspondence=Correspondence.BRUTE)
     k6_args = _capture(distance_mod, "brute_nn", lambda: icp_step(
         st0, moving, fixed, prm_d, cfg_b))[0]
-    idx_k, score_k = bn.brute_nn(*k6_args)
-    idx_t, score_t = bn.brute_nn_ref(*k6_args)
-    torch.cuda.synchronize()
-    same_idx = int((idx_k == idx_t).sum())
-    k6_err = _finite_err(score_k, score_t)
-    print(f"K6 brute_nn {M}x{k6_args[1].shape[0]}: idx equal on {same_idx} of "
-          f"{idx_k.numel()} queries, scores bitwise: {_bitwise(score_k, score_t)}",
-          flush=True)
-    if not (same_idx == idx_k.numel() and _bitwise(score_k, score_t)):
-        raise AssertionError("K6 differs from its twin")
+    k6_err, k6_rescored = check_brute("flagship BRUTE step", k6_args)
+    k6_sets = {"flagship": k6_args} | {
+        name: tuple(torch.from_numpy(x).to(dev) for x in brute_sets.adversarial(name))
+        for name in brute_sets.ADVERSARIAL}
+    for name in brute_sets.ADVERSARIAL:
+        k6_err = max(k6_err, check_brute(name, k6_sets[name])[0])
+    # The margin's headroom on the card: a margin below the real error of
+    # the tensor-core score can drop a winner, where a near-tie lies within
+    # that error (a set without one, or whose error only lowers s~, holds
+    # at any cut).
+    k6_headroom = {name: _margin_headroom(bn, native, a) for name, a in k6_sets.items()}
+    print(f"K6 margin headroom (largest cut of eps still bitwise, first cut that was "
+          f"not): {json.dumps(k6_headroom)}", flush=True)
+    k6_eps = (bn.KAPPA * 2.0 ** -20, bn.MARGIN_FLOOR)
+    k6_full, k6_none = float("inf"), float("inf")
+    for _ in range(3):  # alternate; keep each minimum
+        k6_full = min(k6_full, _cuda_ms(lambda: _brute_raw(native, k6_args, *k6_eps)))
+        k6_none = min(k6_none, _cuda_ms(lambda: _brute_raw(native, k6_args, k6_eps[0],
+                                                           -float("inf"))))
+    print(f"K6 flagship: {k6_full} ms with its margin, {k6_none} ms with no pair "
+          f"re-scored (eps -inf)", flush=True)
 
     # ---- 2d. K2 at the 16x layout (the windowed TPU variant's shape) ---------
     m16, n_r16, cap16 = 262144, 2048, 256
@@ -629,17 +719,22 @@ def main() -> None:
     k1x_args, k7x_args = step_args["rep_assign_counts"], step_args["bin_gn_moments"]
     k3x_args = _capture(search_mod, "bin_point_moments", lambda: icp_step(
         st0, wm, build_index(wf, prm_d, cfg_16x), prm_d, cfg_16x))
+    cfg_lg = dataclasses.replace(cfg_lidar, objective=Objective.GICP)
+    a, kw = _capture(search_mod, "bin_gn_moments", lambda: icp_step(
+        st0, wm, build_index(wf, prm_d, cfg_lg), prm_d, cfg_lg))
+    k7x_modes = {"plane": k7x_args, "plane_sym": (a, dict(kw, mode="plane_sym")), "gicp": (a, kw)}
     del index_l
     err16 = {"bin_table": 0.0}  # K2 at 16x is bitwise (2d)
     _, _, err16["rep_assign_counts"], err16["rep_assign"] = _check_rep_assign(
         fs, *k1x_args[0], "LiDAR step")
     for name, kernel, twin, (a, kw) in (
-            ("bin_gn_moments", fg.bin_gn_moments, fg.bin_gn_moments_ref, k7x_args),
+            *(("bin_gn_moments", fg.bin_gn_moments, fg.bin_gn_moments_ref, c)
+              for c in k7x_modes.values()),
             ("bin_point_moments", fs.bin_point_moments, fs.bin_point_moments_ref,
              k3x_args)):
         cb = a[4 if name == "bin_gn_moments" else 3].shape[1]
-        err16[name] = _check_moments(f"{name} 16x (mg {tuple(a[0].shape)}, cb {cb}, {kw})",
-                                     kernel, twin, a, kw)
+        err16[name] = max(err16.get(name, 0.0), _check_moments(
+            f"{name} 16x (mg {tuple(a[0].shape)}, cb {cb}, {kw})", kernel, twin, a, kw))
 
     # ---- 3. The slice: three flagship registrations ------------------------
     counters = {"rep_assign_counts": fs.rep_assign_counts,
@@ -1004,7 +1099,8 @@ def main() -> None:
         "rep_top2_counts": (km.rep_top2_counts, km.rep_top2_counts_ref, k9_args, {}),
         "bin_knn_moments": (km.bin_knn_moments, km.bin_knn_moments_ref, k8_args, k8_kw),
         "rep_assign_counts@16x": (fs.rep_assign_counts, fs.rep_assign_counts_ref, *k1x_args),
-        "bin_gn_moments@16x plane": (fg.bin_gn_moments, fg.bin_gn_moments_ref, *k7x_args),
+        **{f"bin_gn_moments@16x {mode}": (fg.bin_gn_moments, fg.bin_gn_moments_ref, *c)
+           for mode, c in k7x_modes.items()},
         "bin_point_moments@16x": (fs.bin_point_moments, fs.bin_point_moments_ref,
                                   *k3x_args),
     }
@@ -1022,7 +1118,8 @@ def main() -> None:
     # Twins that sweep a large set (K6's 16384 x 16384, K1 and K9 over
     # 262144 x 2048 scores, K8 over 2048 bins): 5 calls per timing, not 20.
     twin_reps = {"brute_nn": 5, "rep_top2_counts": 5, "bin_knn_moments": 5,
-                 "rep_assign_counts@16x": 5, "bin_point_moments@16x": 5}
+                 "rep_assign_counts@16x": 5, "bin_point_moments@16x": 5,
+                 **{f"bin_gn_moments@16x {mode}": 5 for mode in k7x_modes}}
     times = {}
     for key, (kernel, twin, a, kw) in cases.items():
         bound = _bound(*_work(key.split()[0].split("@")[0], a, kw, kernel(*a, **kw)))
@@ -1070,6 +1167,9 @@ def main() -> None:
     at16 = {"rep_assign_counts": "rep_assign_counts@16x",
             "bin_point_moments": "bin_point_moments@16x",
             "bin_gn_moments": "bin_gn_moments@16x plane"}
+    r6 = k6_rescored.double()
+    extra = {"brute_nn": {"rescored_mean": float(r6.mean()), "rescored_max": int(r6.max()),
+                          "margin_headroom": k6_headroom, "ms_no_rescore": k6_none}}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": max(err, err16.get(name, 0)),
                 "ms": times[name][0], "plain_ms": times[name][1],
@@ -1078,6 +1178,7 @@ def main() -> None:
                | ({"max_abs_err_16x": err16[name]} if name in err16 else {})
                | ({"ms_16x": times[at16[name]][0], "bound_ms_16x": times[at16[name]][2]}
                   if name in at16 else {})
+               | extra.get(name, {})
                for name, (src, rep, err) in meta.items()]
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

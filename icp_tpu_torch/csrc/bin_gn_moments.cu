@@ -2,7 +2,7 @@
 //
 // Replaces bin_gn_moments_pallas (icp_tpu/kernels/fused_gn.py:318), whose
 // body is _gn_math in its "sublane" layout (:122-283). For each bin b and
-// query slot i, after common.cuh's search and weight (the same as K3's):
+// query slot i, after K3's search and weight:
 //   f = bins_vals[b, c*]: centered xyz in lanes 0:3, fixed normal n_f in 8:11
 //   m = qc_xyz,  d = m - f_xyz,  n_m = the grouped, rotated moving normal
 //   row(u) = v = [u, m x u, u . d, 1]        with a per-row weight factor g
@@ -15,45 +15,46 @@
 //   gicp also: P_z = sum_i w z z^T, z = [m, d, 1, 0]  (the isotropic I/2
 //   term, expanded outside the kernel by fused_gn.gicp_const_moment)
 //
-// What bounds it: the search (75 M score FMAs at n_r = 256, cq = 96,
-// cb = 128) and its latency, as in K3; the rows add ~100 FLOPs per slot.
-// Registers are the scarce resource: each thread keeps its moment sums in
-// registers, so only the upper triangles are accumulated, 36 entries for P
-// and 28 for P_z (row and column 7 of P_z are zero), 64 in all for gicp,
-// as many as K3 keeps; the writer mirrors them into full 8x8 matrices.
+// What bounds it: the search, as in K3: ~30 FP32 instructions per live pair
+// (valid query slots x live slots of their bin); the rows add ~100 FLOPs per
+// kept query.
 //
-// Design: one block per bin, 128 threads, one query slot per thread; the
-// bin is staged in shared memory by stage_bin (lanes 0:8 of the 12-wide
-// rows), the winner's row is read once from device memory. The query rows
-// and the moving normals take a row stride, so the two halves of the
-// 11-wide grouped (moving8 | normal) table are read in place. The
-// reduction is common.cuh's fixed-order block sum: P repeats bitwise.
-#include "common.cuh"
+// Design: K3's (bin_point_moments.cu). One block of 256 threads per bin runs
+// bin_search_phase.cuh's search, the same code as K3's: live pairs only,
+// bounded query and bin tiles, (chunk, query) items over all threads, the
+// first minimum. Then each kept query reads its winner's row of bins_vals
+// (12 wide) and its moving normal (row stride ld_nm, so the two halves of
+// the 11-wide grouped (moving8 | normal) table are read in place), and
+// writes its rows to shared memory:
+//   plane, plane_sym:  v (8) and w                       (9 floats)
+//   gicp:              v_s, v_t (8 each), w g_s, w g_t, z (7) and w   (26)
+// No thread holds an 8x8 accumulator: the warps take the distinct entries,
+// the 36 of the symmetric P (plus the 28 of P_z's 7x7 block for gicp; its
+// row and column 7 are zero), and lane l sums the kept queries whose rank
+// among the bin's kept queries is l mod 32, in rank order across the query
+// tiles; then a fixed shuffle tree, mirrored into both triangles. P and P_z
+// repeat bitwise from run to run. alpha, delta and eps are read on the
+// device (scal).
+#include "bin_search_phase.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
+using icp::live::kPairJ;
+using icp::live::kPairL;
+using icp::live::kThreads;
+using icp::live::kWarps;
 constexpr int kPlane = 0, kPlaneSym = 1, kGicp = 2;
 
-// Position of (j, l), j <= l, in the row-major upper triangle of an n x n.
-__host__ __device__ constexpr int tri(int n, int j, int l) {
-  return j * n - j * (j - 1) / 2 + (l - j);
-}
-
-// acc[tri(8, j, l)] += (v_j * wr) * v_l over the upper triangle.
-__device__ __forceinline__ void add_row(float* acc, const float v[8], float wr) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float vw = v[j] * wr;
-#pragma unroll
-    for (int l = j; l < 8; ++l) acc[tri(8, j, l)] = fmaf(vw, v[l], acc[tri(8, j, l)]);
-  }
-}
+template <int MODE>
+struct Layout {
+  static constexpr int kRow = MODE == kGicp ? 26 : 9;  // floats per kept query
+  static constexpr int kN = MODE == kGicp ? 64 : 36;   // distinct entries
+  static constexpr int kEntries = (kN + kWarps - 1) / kWarps;  // per warp
+};
 
 // v = [u, m x u, u . d, 1].
 __device__ __forceinline__ void gn_row(const float m[3], const float d[3],
-                                       float ux, float uy, float uz, float v[8]) {
+                                       float ux, float uy, float uz, float* v) {
   v[0] = ux;
   v[1] = uy;
   v[2] = uz;
@@ -64,8 +65,9 @@ __device__ __forceinline__ void gn_row(const float m[3], const float d[3],
   v[7] = 1.0f;
 }
 
+// Two blocks per SM: at most 128 registers a thread.
 template <int MODE>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 bin_gn_moments_kernel(const float* __restrict__ mg, int ld_mg,
                       const float* __restrict__ nm, int ld_nm,
                       const float* __restrict__ qvalid,
@@ -77,81 +79,94 @@ bin_gn_moments_kernel(const float* __restrict__ mg, int ld_mg,
                       const float* __restrict__ scal, int cq, int cb,
                       int weighted, int robust, float* __restrict__ P,
                       float* __restrict__ Pz) {
-  constexpr int kP = 36;                        // upper triangle of P
-  constexpr int kAcc = MODE == kGicp ? 64 : kP;  // + 28 of P_z's 7 x 7
-  extern __shared__ float smem[];
-  __shared__ float g[64];
-  __shared__ float off[8];
-  __shared__ float red[kWarps * kAcc];
-  __shared__ float sums[kAcc];
-
+  using L = Layout<MODE>;
+  extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const float* bins_b = bins_vals + static_cast<size_t>(b) * cb * 12;
-  const icp::BinStage bin =
-      icp::stage_bin(smem, bins_b, 12, sq_b + static_cast<size_t>(b) * cb, cb);
-  if (threadIdx.x < 64) g[threadIdx.x] = G[threadIdx.x];
-  if (threadIdx.x < 8) {
-    off[threadIdx.x] = __fsub_rn(b_row[threadIdx.x], reps[b * 8 + threadIdx.x]);
-  }
-  __syncthreads();
-
-  const float alpha = scal[0];
   const float delta = scal[1];
   const float e = 1.0f - scal[2];
-  const float w8[8] = {1.0f, 1.0f, 1.0f, 0.0f, alpha, alpha, alpha, 0.0f};
-  float acc[kAcc];
+  float acc[L::kEntries];
 #pragma unroll
-  for (int k = 0; k < kAcc; ++k) acc[k] = 0.0f;
+  for (int j = 0; j < L::kEntries; ++j) acc[j] = 0.0f;
 
-  for (int i = threadIdx.x; i < cq; i += blockDim.x) {
-    const size_t slot = static_cast<size_t>(b) * cq + i;
-    float p[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) p[k] = mg[slot * ld_mg + k];
-    const icp::Match mt = icp::search(p, qvalid[slot], g, off, w8, bin, cb);
-    const float w = icp::match_weight(mt, weighted, robust, delta);
-    const float* f = bins_b + mt.slot * 12;
-    const float m[3] = {mt.qc[0], mt.qc[1], mt.qc[2]};
-    const float d[3] = {m[0] - f[0], m[1] - f[1], m[2] - f[2]};
-    const float nfx = f[8], nfy = f[9], nfz = f[10];
-    float v[8];
-    if constexpr (MODE == kPlane) {
-      gn_row(m, d, nfx, nfy, nfz, v);
-      add_row(acc, v, w);
-    } else {
-      const float nmx = nm[slot * ld_nm], nmy = nm[slot * ld_nm + 1],
-                  nmz = nm[slot * ld_nm + 2];
-      gn_row(m, d, nfx + nmx, nfy + nmy, nfz + nmz, v);
-      if constexpr (MODE == kPlaneSym) {
-        add_row(acc, v, w);
-      } else {
-        const float c = nfx * nmx + nfy * nmy + nfz * nmz;
-        const float gs = e / (4.0f * (2.0f - e * (1.0f + c)));
-        const float gt = e / (4.0f * (2.0f - e * (1.0f - c)));
-        add_row(acc, v, w * gs);
-        gn_row(m, d, nfx - nmx, nfy - nmy, nfz - nmz, v);
-        add_row(acc, v, w * gt);
-        const float z[7] = {m[0], m[1], m[2], d[0], d[1], d[2], 1.0f};
-#pragma unroll
-        for (int j = 0; j < 7; ++j) {
-          const float zw = z[j] * w;
-#pragma unroll
-          for (int l = j; l < 7; ++l) {
-            acc[kP + tri(7, j, l)] = fmaf(zw, z[l], acc[kP + tri(7, j, l)]);
+  icp::live::search_bin(
+      mg + static_cast<size_t>(b) * cq * ld_mg, ld_mg, qvalid + static_cast<size_t>(b) * cq,
+      bins_b, 12, sq_b + static_cast<size_t>(b) * cb, G, b_row, reps + b * 8, scal[0],
+      cq, cb, L::kRow, smem,
+      // ---- Weight; the GN rows.
+      [&](const icp::live::Kept& q, float* o) {
+        const float w = icp::match_weight(q.best, q.sq_q, q.valid, weighted, robust, delta);
+        const float* f = bins_b + q.slot * 12;
+        const float d[3] = {q.qc[0] - f[0], q.qc[1] - f[1], q.qc[2] - f[2]};
+        const float nfx = f[8], nfy = f[9], nfz = f[10];
+        if constexpr (MODE == kPlane) {
+          gn_row(q.qc, d, nfx, nfy, nfz, o);
+          o[8] = w;
+        } else {
+          const float* n = nm + (static_cast<size_t>(b) * cq + q.q) * ld_nm;
+          const float nmx = n[0], nmy = n[1], nmz = n[2];
+          gn_row(q.qc, d, nfx + nmx, nfy + nmy, nfz + nmz, o);
+          if constexpr (MODE == kPlaneSym) {
+            o[8] = w;
+          } else {
+            const float c = nfx * nmx + nfy * nmy + nfz * nmz;
+            const float gs = e / (4.0f * (2.0f - e * (1.0f + c)));
+            const float gt = e / (4.0f * (2.0f - e * (1.0f - c)));
+            gn_row(q.qc, d, nfx - nmx, nfy - nmy, nfz - nmz, o + 8);
+            o[16] = w * gs;
+            o[17] = w * gt;
+            o[18] = q.qc[0];
+            o[19] = q.qc[1];
+            o[20] = q.qc[2];
+            o[21] = d[0];
+            o[22] = d[1];
+            o[23] = d[2];
+            o[24] = 1.0f;
+            o[25] = w;
           }
         }
-      }
+      },
+      // ---- The entries: lane takes the kept queries of rank = lane mod 32.
+      [&](const float* rows, int n_k, int n_done) {
+        for (int k = (lane - n_done) & 31; k < n_k; k += 32) {
+          const float* o = rows + k * L::kRow;
+#pragma unroll
+          for (int j = 0; j < L::kEntries; ++j) {
+            const int en = warp + kWarps * j;
+            if (en >= L::kN) continue;  // uniform in the warp
+            const int J = kPairJ[en], K = kPairL[en];
+            if constexpr (MODE != kGicp) {
+              acc[j] = __fmaf_rn(__fmul_rn(o[J], o[8]), o[K], acc[j]);
+            } else if (en < 36) {
+              acc[j] = __fmaf_rn(__fmul_rn(o[J], o[16]), o[K], acc[j]);
+              acc[j] = __fmaf_rn(__fmul_rn(o[8 + J], o[17]), o[8 + K], acc[j]);
+            } else {
+              acc[j] = __fmaf_rn(__fmul_rn(o[18 + J], o[25]), o[18 + K], acc[j]);
+            }
+          }
+        }
+      });
+
+  float* Pb = P + static_cast<size_t>(b) * 64;
+#pragma unroll
+  for (int j = 0; j < L::kEntries; ++j) {
+    const int en = warp + kWarps * j;
+    if (en >= L::kN) continue;  // uniform in the warp
+    float s = acc[j];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s = __fadd_rn(s, __shfl_down_sync(0xffffffffu, s, o));
+    if (lane == 0) {
+      float* out = en < 36 ? Pb : Pz + static_cast<size_t>(b) * 64;
+      out[kPairJ[en] * 8 + kPairL[en]] = s;
+      out[kPairL[en] * 8 + kPairJ[en]] = s;
     }
   }
-  icp::block_sum<kAcc>(acc, red, sums);
-  __syncthreads();
-  if (threadIdx.x < 64) {
-    const int j = threadIdx.x >> 3, l = threadIdx.x & 7;
-    const int lo = j < l ? j : l, hi = j < l ? l : j;
-    P[static_cast<size_t>(b) * 64 + threadIdx.x] = sums[tri(8, lo, hi)];
-    if constexpr (MODE == kGicp) {
-      Pz[static_cast<size_t>(b) * 64 + threadIdx.x] =
-          hi < 7 ? sums[kP + tri(7, lo, hi)] : 0.0f;
+  if constexpr (MODE == kGicp) {  // P_z's row and column 7
+    if (threadIdx.x < 16) {
+      const int l = threadIdx.x & 7;
+      Pz[static_cast<size_t>(b) * 64 + (threadIdx.x < 8 ? 56 + l : l * 8 + 7)] = 0.0f;
     }
   }
 }
@@ -162,7 +177,8 @@ int launch(const float* mg, int ld_mg, const float* nm, int ld_nm,
            const float* sq_b, const float* G, const float* b_row,
            const float* scal, int n_r, int cq, int cb, int weighted, int robust,
            float* P, float* Pz, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(cb) * 17 * sizeof(float);
+  const size_t smem =
+      icp::live::smem_floats(icp::live::tiles(cq, cb), Layout<MODE>::kRow) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         bin_gn_moments_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,

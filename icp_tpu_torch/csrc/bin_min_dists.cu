@@ -7,9 +7,10 @@
 //                                             original point is non-zero and
 //                                             the bin has a valid slot
 //            = +inf                           otherwise
-// with s_c the bf16x3 scores of common.cuh (the same rounding as K3 and K7,
-// so the three kernels see the same nearest neighbours). The adaptive robust
-// scale is the median of the finite entries (ops/moments.py).
+// with s_c the bf16x3 scores of common.cuh's search (prep_query, dot3_8_fma:
+// the same rounding as K3 and K7, so the three kernels see the same nearest
+// neighbours). The adaptive robust scale is the median of the finite
+// entries (ops/moments.py).
 //
 // What bounds it: the same 75 M score FMAs as K3 at the flagship shape and
 // one float written per slot (98 KB): latency of the serial slot loop, as in
@@ -57,7 +58,7 @@ bin_min_dists_kernel(const float* __restrict__ mg, int ld_mg,
 #pragma unroll
     for (int k = 0; k < 8; ++k) p[k] = mg[slot * ld_mg + k];
     const icp::Match m = icp::search(p, qvalid[slot], g, off, w8, bin, cb);
-    d2[slot] = (m.valid > 0.0f && icp::is_finite(m.best)) ? icp::match_d2(m)
+    d2[slot] = (m.valid > 0.0f && icp::is_finite(m.best)) ? icp::match_d2(m.best, m.sq_q)
                                                            : icp::inf();
   }
 }

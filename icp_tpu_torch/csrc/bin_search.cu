@@ -4,10 +4,10 @@
 // grouped query slot i of bin b:
 //   best[b, i]    = min_c (sq_b[b, c] - 2 * dot3(qg_w[b, i], bins_c[b, c]))
 //   matched[b, i] = vals[b, c*, :]         (c* the first argmin)
-// dot3 is the bf16x3 score contraction of common.cuh, in the lane order of
-// the plain twin bin_search_ref, so kernel and twin pick the same slot. The
-// TPU kernel gathers the payload with a one-hot HIGHEST matmul, an exact
-// gather; here the winner's V floats are copied. A bin whose slots are all
+// dot3 is the bf16x3 score contraction of common.cuh (dot3_8_fma, bit for bit
+// the plain twin bin_search_ref's lane order), so kernel and twin pick the
+// same slot. The TPU kernel gathers the payload with a one-hot HIGHEST
+// matmul, an exact gather; here the winner's V floats are copied. A bin whose slots are all
 // +inf returns +inf and slot 0's (finite) payload, as argmin does.
 //
 // What bounds it: at the flagship shape (n_r = 256, cq = 96, cb = 128) the
@@ -49,8 +49,8 @@ bin_search_kernel(const float* __restrict__ qg_w, const float* __restrict__ bins
     const icp::BinStage bin = icp::stage_bin(smem, bins_c + row0 * 8, 8, sq_b + row0, rows);
     __syncthreads();
     for (int c = 0; c < rows; ++c) {
-      const float cross = icp::dot3_8(q_hi, q_lo, bin.hi + c * 8, bin.lo + c * 8, 1);
-      const float score = __fsub_rn(bin.sq[c], __fmul_rn(2.0f, cross));
+      const float score =
+          icp::score_fma(bin.sq[c], icp::dot3_8_fma(q_hi, q_lo, bin.hi + c * 8, bin.lo + c * 8));
       if (score < best) {
         best = score;
         slot = base + c;

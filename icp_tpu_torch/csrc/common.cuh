@@ -8,9 +8,10 @@
 // make bit-identical nearest-neighbour decisions. dot3_8_fma reaches the
 // same bits with explicit __fmaf_rn where every product is exact.
 //
-// The per-bin search below is shared by K4 (bin_min_dists.cu) and K7
-// (bin_gn_moments.cu); K3 (bin_point_moments.cu) runs its own loop on
-// dot3_8_fma with the same scores, bit for bit: it is the JAX package's
+// prep_query is the query preparation of every per-bin search (K3, K4, K7);
+// search below is K4's (bin_min_dists.cu), one query per thread, and
+// bin_search_phase.cuh holds K3's and K7's, on live pairs only. All of them
+// score with dot3_8_fma and score_fma, bit for bit the JAX package's
 // _score_core / _search_core (icp_tpu/kernels/fused_step.py:449-517).
 #pragma once
 
@@ -45,17 +46,8 @@ __device__ __forceinline__ float lane_dot(const float* a, const float* b,
   return acc;
 }
 
-// bf16x3 score contraction (hi.hi + hi.lo) + lo.hi over 8 lanes.
-__device__ __forceinline__ float dot3_8(const float* a_hi, const float* a_lo,
-                                        const float* b_hi, const float* b_lo,
-                                        int stride) {
-  const float hh = lane_dot<8>(a_hi, b_hi, stride);
-  const float hl = lane_dot<8>(a_hi, b_lo, stride);
-  const float lh = lane_dot<8>(a_lo, b_hi, stride);
-  return __fadd_rn(__fadd_rn(hh, hl), lh);
-}
-
-// dot3_8 with fused multiply-adds, bit for bit dot3_8's value (stride 1).
+// The bf16x3 score contraction (hi.hi + hi.lo) + lo.hi over 8 lanes, the
+// twins' dot3 (fused_step.py), with fused multiply-adds.
 //
 // Every product of a bf16x3 score is a bf16 value times a bf16 value: two
 // 8-bit significands multiply to at most 16 bits, so the float32 product is
@@ -63,8 +55,9 @@ __device__ __forceinline__ float dot3_8(const float* a_hi, const float* a_lo,
 // __fmaf_rn(a, b, acc) rounds a * b + acc once, and so does
 // __fadd_rn(__fmul_rn(a, b), acc) when __fmul_rn(a, b) is exact: each lane
 // sum is one __fmul_rn and seven __fmaf_rn in lane order, equal to
-// lane_dot<8>, and the three sums join in dot3_8's order. An explicit
-// __fmaf_rn leaves nothing to the compiler's contraction.
+// lane_dot<8>, and the three sums join in dot3's order
+// (tests/test_torch_exact_fma.py). An explicit __fmaf_rn leaves nothing to
+// the compiler's contraction.
 __device__ __forceinline__ float dot3_8_fma(const float a_hi[8], const float a_lo[8],
                                             const float b_hi[8], const float b_lo[8]) {
   float hh = __fmul_rn(a_hi[0], b_hi[0]);
@@ -105,6 +98,27 @@ __device__ __forceinline__ BinStage stage_bin(float* smem, const float* rows,
   return s;
 }
 
+// One raw query row p prepared for a bin's search: qc = p @ G + off
+// (g: the (8, 8) similarity G row-major; off = b_row - rep), its weighted
+// qw = qc * w8 split into bf16 halves, sq_q = |qc|^2_w, and
+// valid = qvalid * (|p_xyz|_1 > 0).
+__device__ __forceinline__ void prep_query(const float p[8], float qvalid,
+                                           const float* g, const float* off,
+                                           const float w8[8], float qc[8],
+                                           float hi[8], float lo[8],
+                                           float& sq_q, float& valid) {
+  float qw[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    qc[j] = __fadd_rn(lane_dot<8>(p, g + j, 8), off[j]);
+    qw[j] = __fmul_rn(qc[j], w8[j]);
+    bf16_split(qw[j], hi[j], lo[j]);
+  }
+  sq_q = lane_dot<8>(qw, qc, 1);
+  const float vo = (fabsf(p[0]) + fabsf(p[1]) + fabsf(p[2])) > 0.0f ? 1.0f : 0.0f;
+  valid = __fmul_rn(qvalid, vo);
+}
+
 // One query slot searched against its staged bin.
 struct Match {
   float qc[8];  // transformed, rep-centered query p @ G + (b_row - rep)
@@ -114,32 +128,22 @@ struct Match {
   float valid;  // qvalid * (|p_xyz|_1 > 0)
 };
 
-// g: the (8, 8) similarity G row-major; off = b_row - rep; w8 the metric.
 __device__ __forceinline__ Match search(const float p[8], float qvalid,
                                         const float* g, const float* off,
                                         const float w8[8], const BinStage& bin,
                                         int cb) {
   Match r;
-  float qw[8], q_hi[8], q_lo[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    r.qc[j] = __fadd_rn(lane_dot<8>(p, g + j, 8), off[j]);
-    qw[j] = __fmul_rn(r.qc[j], w8[j]);
-    bf16_split(qw[j], q_hi[j], q_lo[j]);
-  }
-  r.sq_q = lane_dot<8>(qw, r.qc, 1);
+  float hi[8], lo[8];
+  prep_query(p, qvalid, g, off, w8, r.qc, hi, lo, r.sq_q, r.valid);
   r.best = inf();
   r.slot = 0;
   for (int c = 0; c < cb; ++c) {
-    const float cross = dot3_8(q_hi, q_lo, bin.hi + c * 8, bin.lo + c * 8, 1);
-    const float score = __fsub_rn(bin.sq[c], __fmul_rn(2.0f, cross));
+    const float score = score_fma(bin.sq[c], dot3_8_fma(hi, lo, bin.hi + c * 8, bin.lo + c * 8));
     if (score < r.best) {
       r.best = score;
       r.slot = c;
     }
   }
-  const float vo = (fabsf(p[0]) + fabsf(p[1]) + fabsf(p[2])) > 0.0f ? 1.0f : 0.0f;
-  r.valid = __fmul_rn(qvalid, vo);
   return r;
 }
 
@@ -148,8 +152,8 @@ __device__ __forceinline__ bool is_finite(float x) {
 }
 
 // Blended squared NN distance max(best + |qc|^2_w, 0).
-__device__ __forceinline__ float match_d2(const Match& m) {
-  return fmaxf(__fadd_rn(m.best, m.sq_q), 0.0f);
+__device__ __forceinline__ float match_d2(float best, float sq_q) {
+  return fmaxf(__fadd_rn(best, sq_q), 0.0f);
 }
 
 // IRLS factor of ops/moments.py robust_factor on d2 >= 0.
@@ -171,39 +175,15 @@ __device__ __forceinline__ float robust_factor(float d2, int kind, float delta) 
 
 // The composed pair weight of _search_core: validity (slot occupied, original
 // point non-zero, bin non-empty) x [reference 100 / (100 + d2)] x [robust].
-__device__ __forceinline__ float match_weight(const Match& m, int weighted,
-                                              int robust, float delta) {
-  float w = __fmul_rn(m.valid, is_finite(m.best) ? 1.0f : 0.0f);
+__device__ __forceinline__ float match_weight(float best, float sq_q, float valid,
+                                              int weighted, int robust, float delta) {
+  float w = __fmul_rn(valid, is_finite(best) ? 1.0f : 0.0f);
   if (weighted || robust != kNone) {
-    const float d2 = match_d2(m);
+    const float d2 = match_d2(best, sq_q);
     if (weighted) w = __fmul_rn(w, __fdiv_rn(100.0f, __fadd_rn(100.0f, d2)));
     if (robust != kNone) w = __fmul_rn(w, robust_factor(d2, robust, delta));
   }
   return w;
-}
-
-// Fixed-order block sum of N per-thread values (a warp-shuffle tree, then
-// the warps in order): out[e] = sum over the block's threads of acc[e],
-// written by threads 0..N-1. red must hold (blockDim.x / 32) * N floats.
-template <int N>
-__device__ __forceinline__ void block_sum(const float (&acc)[N], float* red,
-                                          float* out) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-#pragma unroll
-  for (int e = 0; e < N; ++e) {
-    float v = acc[e];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    if (lane == 0) red[warp * N + e] = v;
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < N; e += blockDim.x) {
-    float s = red[e];
-    for (int k = 1; k < warps; ++k) s += red[k * N + e];
-    out[e] = s;
-  }
 }
 
 }  // namespace icp

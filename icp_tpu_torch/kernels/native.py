@@ -36,7 +36,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# name -> argument types (pointers and the stream as void*, sizes as int).
+_F = ctypes.c_float
+# name -> argument types (pointers and the stream as void*, sizes as int,
+# constants as float).
 SIGNATURES = {
     # moving8, C, srow, m, n_r, rid, counts, stream
     "icp_rep_assign_counts": [_P, _P, _P, _I, _I, _P, _P, _P],
@@ -60,8 +62,9 @@ SIGNATURES = {
     # qg_w, bins_c, sq_b_masked, vals, n_r, cq, cb, v, best_score, matched,
     # stream
     "icp_bin_search": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
-    # qw, db, sq_db, m, n, idx, score, stream
-    "icp_brute_nn": [_P, _P, _P, _I, _I, _P, _P, _P],
+    # qw, db, sq_db, ms (9 scratch), kappa, floor, m, n, idx, score,
+    # rescored (or null), stream
+    "icp_brute_nn": [_P, _P, _P, _P, _F, _F, _I, _I, _P, _P, _P, _P],
     # p3, reps, srow, m, n_r, i1, i2, counts, stream
     "icp_rep_top2_counts": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
     # qp, ld_q, bins, reps, bvalid, n_r, cq, cb, k, out (7, n_r, cq), stream

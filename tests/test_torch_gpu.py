@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from icp_tpu_torch.sensors.synthetic import synthetic_pair
+from icp_tpu_torch.sensors.brute_sets import ADVERSARIAL, adversarial
 
 pytestmark = pytest.mark.cuda
 
@@ -387,7 +388,7 @@ def test_brute_nn_kernel_bitwise(cuda_dev, m, n):
 
 def test_brute_nn_kernel_planted_tie_picks_first(cuda_dev):
     """Duplicated database rows tie exactly: the first index wins, across
-    database tiles (1024 rows) and across the slices of one tile."""
+    stages of 256 rows."""
     from icp_tpu_torch.kernels import brute_nn as bn
 
     q, db, w8 = _brute_tensors(cuda_dev, 64, 3000, seed=1)
@@ -725,3 +726,158 @@ def test_knn_normals_rbc_reads_nothing_back(cuda_dev):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+# ---- K6 as a tensor-core filter, K7 on K3's search, the step's host reads ---
+
+
+def _brute_bitwise(qw, db, sq_db):
+    """K6 against its twin: the same index on every query, the same score
+    bitwise. Returns the pairs the kernel re-scored per query."""
+    from icp_tpu_torch.kernels import brute_nn as bn
+
+    idx, score, rescored = bn.brute_nn(qw, db, sq_db, count_rescored=True)
+    idx_t, score_t = bn.brute_nn_ref(qw, db, sq_db)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, idx_t)
+    assert torch.equal(score.view(torch.int32), score_t.view(torch.int32))
+    assert bool((rescored >= 1).all()) and bool((rescored <= db.shape[0]).all())
+    return rescored
+
+
+@pytest.mark.parametrize("n", [7, 3001, 16391])
+@pytest.mark.parametrize("m", [1, 17, 1000, 16385])
+def test_brute_nn_filter_bitwise_off_every_tile(cuda_dev, m, n):
+    """Query counts off the 128-query block and the 16-row tensor-core tile,
+    database sizes off the 256-row stage and the 8-row tile."""
+    q, db, w8 = _brute_tensors(cuda_dev, m, n, seed=2)
+    _brute_bitwise((q * w8).to(cuda_dev), db.to(cuda_dev),
+                   torch.sum(db * w8 * db, dim=-1).to(cuda_dev))
+
+
+@pytest.mark.parametrize("name", ADVERSARIAL)
+def test_brute_nn_filter_bitwise_on_adversarial_sets(cuda_dev, name):
+    """Uncentred +-1e4 mm coordinates, exact duplicates across stages,
+    splits and quad lanes, equal-distance shells, scores 0-4 ulps apart."""
+    _brute_bitwise(*(torch.from_numpy(a).to(cuda_dev) for a in adversarial(name)))
+
+
+def test_brute_nn_filter_on_the_flagship_step(cuda_dev):
+    """What the first BRUTE POINT step of the flagship pair hands K6 (16384 x
+    16384): bitwise on every query, and a filter (few re-scored pairs)."""
+    from icp_tpu_torch import Correspondence, ICPConfig
+
+    from test_torch_brute_margin import brute_step_args
+
+    args = brute_step_args(*synthetic_pair(M), ICPConfig(correspondence=Correspondence.BRUTE),
+                           cuda_dev)
+    rescored = _brute_bitwise(*args).double()
+    print(f"re-scored pairs per query: mean {float(rescored.mean())}, "
+          f"max {int(rescored.max())}")
+    assert float(rescored.mean()) <= 64
+
+
+def _gn_step_args(dev, fixed, moving, cfg):
+    """(args, kwargs) that the first fused GN step hands K7."""
+    from icp_tpu_torch import ICPParams, icp_step
+    from icp_tpu_torch.icp.run import build_index
+    from icp_tpu_torch.icp.state import identity_state
+    from icp_tpu_torch.rbc import search
+
+    params = ICPParams(alpha=2e2).to(dev)
+    seen = []
+    real = search.bin_gn_moments
+    search.bin_gn_moments = lambda *a, **kw: seen.append((a, kw)) or real(*a, **kw)
+    try:
+        icp_step(identity_state(torch.float32, dev), moving,
+                 build_index(fixed, params, cfg), params, cfg)
+    finally:
+        search.bin_gn_moments = real
+    return seen[0]
+
+
+@pytest.fixture(scope="module")
+def gn_cases(cuda_dev, rendered):
+    """K7's arguments from GICP steps (so the moving normals are there for
+    every mode): the LiDAR shape (262144 x 2048, kNN normals; cq 192, cb
+    256) and the rendered pair with few, large bins (n_r 32 / 16 / 8: cq up
+    to 3072, cb up to 4096, several query and bin tiles)."""
+    from icp_tpu_torch import ICPConfig, Objective
+    from icp_tpu_torch.sensors.synthetic import wavy_surface_pair
+
+    cases = {}
+    f16, m16 = (torch.from_numpy(a).to(cuda_dev) for a in wavy_surface_pair(262144)[:2])
+    cases["16x"] = _gn_step_args(cuda_dev, f16, m16, ICPConfig(
+        m=262144, n_r=2048, objective=Objective.GICP, estimate_scale=False,
+        normal_mode="knn"))
+    for n_r in (32, 16, 8):
+        cases[f"n_r={n_r}"] = _gn_step_args(cuda_dev, rendered["fixed_d"], rendered["moving_d"],
+                                            ICPConfig(n_r=n_r, objective=Objective.GICP,
+                                                      estimate_scale=False))
+    return cases
+
+
+@pytest.mark.parametrize("mode", ["plane", "plane_sym", "gicp"])
+@pytest.mark.parametrize("shape", ["16x", "n_r=32", "n_r=16", "n_r=8"])
+def test_bin_gn_moments_kernel_at_step_shapes(gn_cases, shape, mode):
+    """K7 in every mode and robust kind on what GN steps hand it: P (and
+    P_z) within 1e-4 of max|P| of the twin's, repeating bitwise."""
+    from icp_tpu_torch.kernels import fused_gn as fg
+
+    a, kw = gn_cases[shape]
+    a = (a[0], None if mode == "plane" else a[1]) + tuple(a[2:])
+    for robust, weighted in (("none", True), ("huber", True), ("tukey", True),
+                             ("trimmed", False)):
+        kwr = dict(kw, mode=mode, weighted=weighted, robust=robust, robust_delta=12.0)
+        got, want, again = (fg.bin_gn_moments(*a, **kwr), fg.bin_gn_moments_ref(*a, **kwr),
+                            fg.bin_gn_moments(*a, **kwr))
+        torch.cuda.synchronize()
+        if mode != "gicp":
+            got, want, again = (got,), (want,), (again,)
+        for g, w, r in zip(got, want, again):
+            assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max()), (robust, weighted)
+            assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("case", ["brute_point", "plane", "gicp"])
+def test_step_chunk_reads_nothing_back(cuda_dev, rendered, case):
+    """One 8-step chunk of icp_run (BRUTE POINT with K6 and its margin on the
+    flagship pair; the fused PLANE and GICP steps with K7 on the rendered
+    pair) makes no call that waits for the stream: torch's sync debug mode
+    raises on one. A first chunk builds the kernels."""
+    from icp_tpu_torch import Correspondence, ICPConfig, ICPParams, Objective, icp_step
+    from icp_tpu_torch.icp.run import CHUNK, _select, build_target, converged
+    from icp_tpu_torch.icp.state import identity_state
+    from icp_tpu_torch.ops.normals import normals_for
+
+    if case == "brute_point":
+        fixed, moving = (torch.from_numpy(a).to(cuda_dev) for a in synthetic_pair(M))
+        cfg = ICPConfig(correspondence=Correspondence.BRUTE)
+    else:
+        fixed, moving = rendered["fixed_d"], rendered["moving_d"]
+        cfg = ICPConfig(objective=Objective.PLANE if case == "plane" else Objective.GICP,
+                        estimate_scale=False)
+    params = ICPParams(alpha=2e2).to(cuda_dev)
+    target = build_target(fixed, params, cfg)
+    mn = normals_for(moving, cfg.normal_mode) if case == "gicp" else None
+
+    def chunk(state, done):
+        for _ in range(CHUNK):
+            take = torch.logical_and(state.k < cfg.max_iterations,
+                                     torch.logical_or(state.k == 0, torch.logical_not(done)))
+            new = icp_step(state, moving, target, params, cfg, moving_normals=mn)
+            state = _select(take, new, state)
+            done = torch.where(take, converged(new, params), done)
+        return state, done
+
+    state = identity_state(torch.float32, cuda_dev)
+    done = torch.zeros((), dtype=torch.bool, device=cuda_dev)
+    state, done = chunk(state, done)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, done = chunk(state, done)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(state.t).all())

@@ -8,9 +8,11 @@ Phases (any failure raises and exits non-zero; there is no CPU fallback):
 1. Device: require CUDA, print the card (nvidia-smi name and power limit),
    the torch and nvcc versions, and build the kernels from csrc/.
 2. Kernels against their plain PyTorch twins on the card, on the tensors of
-   the first iteration of the flagship pair (m=16384, n_r=256): K2 bitwise;
-   K1 exact counts and every rid equal to the twin's, K1′ equal to K1; K3
-   max|dP| <= 1e-4 max|P| and a second launch bitwise equal to the first.
+   the first iteration of the flagship pair (m=16384, n_r=256): K2 bitwise,
+   on sorted rows and gathering the unsorted rows through the order, and on
+   every table the index build and the step make; K1 exact counts and every
+   rid equal to the twin's, K1′ equal to K1; K3 max|dP| <= 1e-4 max|P| and a
+   second launch bitwise equal to the first.
 3. The slice: register three flagship pairs (seeds 0, 1, 2) with the
    default ICPConfig through icp_tpu_torch.register on CUDA tensors; each
    must land within 0.05 mm and 0.005 deg of the ground truth, the launch
@@ -63,7 +65,9 @@ BRUTE with K6, and K1′) add:
     headroom on the card); and the sweep's time with no pair re-scored (a
     margin of -inf) beside its time with the margin.
 2d. K2 at the 16x layout (262144 rows, 2048 bins, cap 256, d = 8 and 11),
-    the shape of the windowed TPU variant, bitwise against its twin.
+    the shape of the windowed TPU variant, bitwise against its twin, on
+    sorted rows and through the order; also on the PLANE index build's and
+    step's tables (2b) and the estimator's (2e).
 3c. BRUTE POINT on the synthetic pair (seeds 0, 1, 2) within 0.05 mm and
     0.005 deg; BRUTE PLANE and the unfused PLANE, plane_sym, GICP and
     robust gates within 1.0 mm and 0.05 deg; the two-phase POINT step
@@ -83,8 +87,13 @@ bin_knn_moments) adds, on the reference's wavy-surface pairs
     i1 and i2 agreement >= 99.9 % with every disagreement a float64
     near-tie; K8 on the tables the estimator builds there (n_r 2048, cq 192,
     cb 384, k 16): n bitwise, components within 1e-5 of each query's
-    largest, and the normals of the two within cos 0.9999 on >= 99.9 % of
-    the slots. K9's and K8's arguments come from one call of the estimator.
+    largest, a second launch bitwise equal to the first, and the normals of
+    the two within cos 0.9999 on >= 99.9 % of the slots. K9's and K8's
+    arguments come from one call of the estimator. K8 under the same rule
+    at 16384 points (n_r 128, the GICP "knn_rbc" cell) and on the
+    adversarial sets of sensors/knn_sets.py (ties at the k-th value,
+    all-invalid bins, NaN queries, negative d2, k 1 / 12 / 16 / 40, cb 100
+    and 1024).
 2f. The per-step kernels of the 16x paths, on the arguments the steps hand
     them: K1 and K1′ at the LiDAR PLANE step (262144 x 2048) under phase
     2's rule (every rid equal to the twin's), K7 plane there (cq 192, cb
@@ -98,8 +107,9 @@ bin_knn_moments) adds, on the reference's wavy-surface pairs
     (the same zero set, |dn| <= 1e-4 on >= 99.9 % of rows); GICP with
     "knn_rbc" at 16384 points, and the reference's 4x and 16x POINT gates
     (65536 x 1024, 262144 x 2048), each within the gate.
-4d. Times: K9, K8, K7 (three modes), K3 and K1 at the 16x shape against
-    their twins, the estimator's ms per call at 262144 points and the
+4d. Times: K9, K8 (also at 16384 points), K7 (three modes), K3, K1 and K2
+    (through the order) at the 16x shape against their twins, the estimator's ms per call
+    at 262144 points and the
     marginal ms per iteration of the LiDAR PLANE registration and the 4x /
     16x POINT cells.
 
@@ -113,9 +123,14 @@ operations are fp32 over 67 TFLOP/s (K3, K4 and K7 count the pairs of valid
 query slots and finite bin slots); K6's are the work of its design: 3 x 2 x
 8 TF32 flops per pair over 495 TFLOP/s, or its fp32 epilogue (the fma of the
 score and a min, 3 operations per pair) over 67 TFLOP/s, whichever takes
-longer. K1, K3 and K7 add ms_16x and bound_ms_16x at the 16x step shape, K6
-its re-scored pairs per query (mean and largest), the margin's headroom per
-set and the sweep's time with no re-score. library_ms is null, since
+longer. K1, K2, K3 and K7 add ms_16x and bound_ms_16x at the 16x step shape,
+K6 its re-scored pairs per query (mean and largest), the margin's headroom
+per set and the sweep's time with no re-score. K8's bound_ms is the work
+the function needs (the d2 cross, 21 operations a pair of a query and a live
+candidate, 40 per neighbour, 100 per query); bound_ms_pr4 is the count of its
+first design (60 a query-slot pair: the d2, 18 counting passes, the
+membership), kept to compare with older records; K8 adds ms_16384,
+plain_ms_16384 and both bounds there. library_ms is null, since
 no single PyTorch call computes any of these functions. The last line is
 {"ok": true, "device": {...}}.
 """
@@ -224,6 +239,76 @@ def _capture(module, name: str, call):
     return _capture_all(module, (name,), call)[name]
 
 
+def _check_k2_tables(grouping, what: str, n: int, call) -> float:
+    """K2 bitwise against its twin on every table that ``call()`` makes
+    through ``grouping.bin_table``, of which there must be ``n``. Returns
+    max|d| (0.0)."""
+    orig, seen = grouping.bin_table, []
+
+    def spy(*args, **kwargs):
+        seen.append((args, kwargs))
+        return orig(*args, **kwargs)
+
+    grouping.bin_table = spy
+    try:
+        call()
+    finally:
+        grouping.bin_table = orig
+    torch.cuda.synchronize()
+    if len(seen) != n:
+        raise AssertionError(f"K2 {what}: {len(seen)} tables made, expected {n}")
+    return max(_check_k2(what, a, kw) for a, kw in seen)
+
+
+def _k2_twin(rows, starts, *, capacity, order=None):
+    """K2's twin in either form: bin_table_ref of the gathered,
+    concatenated rows."""
+    from icp_tpu_torch.kernels import table_build as tb
+
+    sources = (rows,) if isinstance(rows, torch.Tensor) else tuple(rows)
+    return tb.bin_table_ref(tb.gathered_rows(sources, order), starts, capacity=capacity)
+
+
+def _check_k2(what: str, args, kwargs) -> float:
+    """K2 against its twin, bitwise. Returns max|d| (0.0)."""
+    from icp_tpu_torch.kernels import table_build as tb
+
+    got, want = tb.bin_table(*args, **kwargs), _k2_twin(*args, **kwargs)
+    torch.cuda.synchronize()
+    ok = _bitwise(got, want)
+    src = args[0] if isinstance(args[0], (tuple, list)) else (args[0],)
+    print(f"K2 bin_table {what}: table {tuple(got.shape)} from "
+          f"{[tuple(x.shape) for x in src]} "
+          f"{'through the order' if kwargs.get('order') is not None else 'sorted'}: "
+          f"bitwise equal to its twin: {ok}", flush=True)
+    if not ok:
+        raise AssertionError(f"K2 {what} differs from its twin")
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def _check_k8(km, what: str, args, kwargs) -> tuple[float, float]:
+    """K8 against its twin: n bitwise, the components within 1e-5 of each
+    query's largest, a second launch bitwise equal to the first. Returns
+    (max|dC|, worst relative error)."""
+    comps_k, cnt_k = km.bin_knn_moments(*args, **kwargs)
+    again = km.bin_knn_moments(*args, **kwargs)
+    comps_t, cnt_t = km.bin_knn_moments_ref(*args, **kwargs)
+    torch.cuda.synchronize()
+    ck, ct = torch.stack(comps_k), torch.stack(comps_t)
+    err = float((ck - ct).abs().max())
+    rel = float(((ck - ct).abs() / ct.abs().amax(dim=0).clamp(min=1e-30)).max())
+    same_n = torch.equal(cnt_k, cnt_t)
+    repeats = _bitwise(ck, torch.stack(again[0])) and torch.equal(cnt_k, again[1])
+    print(f"K8 bin_knn_moments {what}: qp {tuple(args[0].shape)}, bins "
+          f"{tuple(args[1].shape)}, k {kwargs['k']}: n bitwise: {same_n} (mean n "
+          f"{float(cnt_k.mean()):.3f}, max {float(cnt_k.max())}); max|dC| {err:.4e}, worst "
+          f"relative to the query's largest component {rel:.3e} (bound 1e-5); repeats "
+          f"bitwise: {repeats}", flush=True)
+    if not (same_n and rel <= 1e-5 and repeats):
+        raise AssertionError(f"K8 {what} disagrees with its twin")
+    return err, rel
+
+
 def _check_rep_assign(fs, moving8, C, srow, what: str) -> tuple:
     """K1 and K1′ against their twin: counts equal the bincount of the
     kernel's own rids, sum to m and equal the twin's; K1's rid equal to the
@@ -304,7 +389,8 @@ def _work(name: str, args, kwargs, out) -> tuple[float, int]:
     (50 fp32 operations per query-candidate pair; an FMA counts as two);
     over 3 lanes 21. Per query or per neighbour terms are added where the
     kernel has them. K3, K4 and K7 count the pairs their inputs hold: valid
-    query slots times the finite slots of their bin. K6 scores every pair on
+    query slots times the finite slots of their bin; K8 each query slot
+    against its bin's live candidates (occupied, finite). K6 scores every pair on
     the tensor cores (three m16n8k8 TF32 products, 48 flops a pair) beside
     an fp32 epilogue of 3 operations a pair."""
     nbytes = sum(t.numel() * t.element_size() for t in _tensors((args, kwargs, out)))
@@ -320,9 +406,11 @@ def _work(name: str, args, kwargs, out) -> tuple[float, int]:
         ops = 50 * a[0].shape[0] * a[0].shape[1] * a[1].shape[1]
     elif name == "rep_top2_counts":
         ops = 21 * a[0].shape[0] * a[1].shape[0]
-    elif name == "bin_knn_moments":  # d2, 18 bisection passes, membership;
-        n_r, cq = a[0].shape[:2]     # 40 per admitted neighbour
-        ops = 60 * n_r * cq * a[1].shape[1] + 40 * float(out[1].sum()) + 100 * n_r * cq
+    elif name == "bin_knn_moments":  # the d2 cross, 40 per neighbour
+        qp, bins, _, bvalid = a
+        live = (bvalid & torch.isfinite(bins).all(dim=-1)).sum(dim=1).double()
+        ops = (21 * qp.shape[1] * float(live.sum()) + 40 * float(out[1].sum())
+               + 100 * qp.shape[0] * qp.shape[1])
     else:  # K3, K4, K7: the search, then per query the transform and rows
         gn = name == "bin_gn_moments"
         kept = (a[2 if gn else 1] != 0).sum(dim=1).double()
@@ -331,6 +419,16 @@ def _work(name: str, args, kwargs, out) -> tuple[float, int]:
         # the finite slots of its bin, not every padded slot.
         ops = 50 * float((kept * live).sum()) + 400 * float(kept.sum())
     return ops / PEAK_FP32 * 1e3, nbytes
+
+
+def _k8_pr4_ms(args, out) -> float:
+    """ms of K8's first design's count at the card's fp32 peak: 60
+    operations a pair of a query and a padded slot (the d2, 18 counting
+    passes, the membership), 40 per neighbour, 100 per query. Kept to
+    compare with older records."""
+    n_r, cq = args[0].shape[:2]
+    ops = 60 * n_r * cq * args[1].shape[1] + 40 * float(out[1].sum()) + 100 * n_r * cq
+    return ops / PEAK_FP32 * 1e3
 
 
 def _bound(t_ops: float, nbytes: int) -> tuple[float, str]:
@@ -426,7 +524,7 @@ def main() -> None:
     from icp_tpu_torch.rbc import search as search_mod
     from icp_tpu_torch.sensors.synthetic import synthetic_pair as _synthetic_pair
     from icp_tpu_torch.sensors.synthetic import wavy_surface_pair
-    from icp_tpu_torch.sensors import brute_sets
+    from icp_tpu_torch.sensors import brute_sets, knn_sets
 
     dev = torch.device("cuda", 0)
 
@@ -463,13 +561,15 @@ def main() -> None:
     sidx, counts, offsets, valid = grouping.bin_sort_layout(
         rid_k, N_R, cfg.query_capacity, counts=counts_k)
     sorted_rows = torch.index_select(moving, 0, sidx).contiguous()
-    table_k = tb.bin_table(sorted_rows, offsets, capacity=cfg.query_capacity)
-    table_t = tb.bin_table_ref(sorted_rows, offsets, capacity=cfg.query_capacity)
-    torch.cuda.synchronize()
-    if not torch.equal(table_k.view(torch.int32), table_t.view(torch.int32)):
-        raise AssertionError("K2 bin_table is not bitwise equal to its twin")
-    k2_err = float((table_k - table_t).abs().max())
-    print("K2 bin_table: bitwise equal to its twin", flush=True)
+    cap_q = {"capacity": cfg.query_capacity}
+    k2_err = _check_k2("flagship, sorted rows", (sorted_rows, offsets), cap_q)
+    k2_gather = (((moving,), offsets), dict(cap_q, order=sidx))
+    k2_err = max(k2_err, _check_k2("flagship", *k2_gather))
+    # Every table the flagship index build (db, ids) and step (moving) make.
+    k2_err = max(k2_err, _check_k2_tables(grouping, "flagship build / step", 2, lambda: (
+        build_index(fixed, params.to(dev), cfg),
+        icp_step(st0, moving, index, params.to(dev), cfg))))
+    table_k = tb.bin_table(*k2_gather[0], **k2_gather[1])
 
     qvalid = valid.to(torch.float32)
     k3_args = (table_k, qvalid, index.reps, index.bins_centered,
@@ -490,6 +590,12 @@ def main() -> None:
     gl = grouping.group_rows_by_bin(rid_p, N_R, cfg_p.query_capacity, (lb_d, mnr),
                                     counts=counts_p)
     mg11, nm11 = gl.grouped  # strided views of one (n_r, cq, 11) table
+    # K2 on the PLANE index build's table (db, ids, normals: d 12) and the
+    # step's (moving, normals: d 11).
+    k2_err = max(k2_err, _check_k2_tables(grouping, "PLANE build / step", 2, lambda: (
+        build_index(fa_d, params.to(dev), cfg_p),
+        grouping.group_rows_by_bin(rid_p, N_R, cfg_p.query_capacity, (lb_d, mnr),
+                                   counts=counts_p))))
     qv = gl.valid.to(torch.float32)
     search = (index_p.reps, index_p.bins_centered, index_p.sq_b_masked, Gp, bp, alpha)
     k4_args = (mg11, qv) + search
@@ -635,20 +741,18 @@ def main() -> None:
     C16, srow16 = fs.prep_rep_assign(reps16, alpha, G, b_row)
     rid16, counts16 = fs.rep_assign_counts(mv16, C16.contiguous(), srow16)
     sidx16, _, offsets16, _ = grouping.bin_sort_layout(rid16, n_r16, cap16, counts=counts16)
-    rows16 = torch.cat([mv16, normals_for(mv16, "auto")], dim=1)
+    nrm16 = normals_for(mv16, "auto")
+    print(f"16x layout: {m16} rows, {n_r16} bins, cap {cap16}; bins over capacity "
+          f"{int((counts16 > cap16).sum())}, empty {int((counts16 == 0).sum())}", flush=True)
     k2x_args = {}
-    for d in (8, 11):
-        sorted16 = torch.index_select(rows16[:, :d].contiguous(), 0, sidx16).contiguous()
-        k2x_args[d] = (sorted16, offsets16)
-        got = tb.bin_table(sorted16, offsets16, capacity=cap16)
-        want = tb.bin_table_ref(sorted16, offsets16, capacity=cap16)
-        torch.cuda.synchronize()
-        print(f"K2 bin_table 16x ({m16} rows, {n_r16} bins, cap {cap16}, d {d}; bins over "
-              f"capacity {int((counts16 > cap16).sum())}, empty {int((counts16 == 0).sum())}):"
-              f" bitwise equal to its twin: {_bitwise(got, want)}", flush=True)
-        if not _bitwise(got, want):
-            raise AssertionError(f"K2 at 16x, d {d}, differs from its twin")
-    del f16, mv16, rows16
+    err16_k2 = 0.0
+    for d, srcs in ((8, (mv16,)), (11, (mv16, nrm16))):
+        sorted16 = tb.gathered_rows(srcs, sidx16).contiguous()
+        k2x_args[d] = ((srcs, offsets16), {"capacity": cap16, "order": sidx16})
+        err16_k2 = max(err16_k2, _check_k2(f"16x d {d}, sorted rows", (sorted16, offsets16),
+                                           {"capacity": cap16}),
+                       _check_k2(f"16x d {d}", *k2x_args[d]))
+    del f16
 
     # ---- 2e. Slice 5: K9 and K8 at the LiDAR shape ---------------------------
     wf_np, wm_np, q_l, t_l = wavy_surface_pair(M_L)
@@ -689,23 +793,30 @@ def main() -> None:
         raise AssertionError(f"K9 differing pick is not a near-tie: {k9_worst}")
 
     k8_args, k8_kw = knn_args["bin_knn_moments"]
-    comps_k, cnt_k = km.bin_knn_moments(*k8_args, **k8_kw)
-    comps_t, cnt_t = km.bin_knn_moments_ref(*k8_args, **k8_kw)
-    torch.cuda.synchronize()
-    ck, ct = torch.stack(comps_k), torch.stack(comps_t)
-    k8_err = float((ck - ct).abs().max())
-    k8_rel = float(((ck - ct).abs() / ct.abs().amax(dim=0).clamp(min=1e-30)).max())
+    k8_err, _ = _check_k8(km, "LiDAR", k8_args, k8_kw)
+    comps_k, _ = km.bin_knn_moments(*k8_args, **k8_kw)
+    comps_t, _ = km.bin_knn_moments_ref(*k8_args, **k8_kw)
     qfin = torch.isfinite(k8_args[0]).all(dim=-1)
     n_k = torch.stack(normals_mod._smallest_eigvec3_components(*comps_k), dim=-1)
     n_t = torch.stack(normals_mod._smallest_eigvec3_components(*comps_t), dim=-1)
     cos_share = float(((n_k * n_t).sum(-1).abs()[qfin] > 0.9999).float().mean())
-    print(f"K8 bin_knn_moments qp {tuple(k8_args[0].shape)}, bins {tuple(k8_args[1].shape)}, "
-          f"k {k8_kw['k']}: n bitwise: {torch.equal(cnt_k, cnt_t)} (mean n "
-          f"{float(cnt_k[qfin].mean()):.3f}); max|dC| {k8_err:.4e}, worst relative to the "
-          f"query's largest component {k8_rel:.3e} (bound 1e-5); normals cos > 0.9999 on "
-          f"{cos_share:.6f} of {int(qfin.sum())} slots", flush=True)
-    if not (torch.equal(cnt_k, cnt_t) and k8_rel <= 1e-5 and cos_share >= 0.999):
-        raise AssertionError("K8 disagrees with its twin")
+    print(f"K8 LiDAR: normals cos > 0.9999 on {cos_share:.6f} of {int(qfin.sum())} slots",
+          flush=True)
+    if cos_share < 0.999:
+        raise AssertionError("K8's normals disagree with its twin's")
+    # K2 on the estimator's two groupings there (d 4 and 3).
+    k2_err = max(k2_err, _check_k2_tables(grouping, "LiDAR estimator", 2,
+                                          lambda: normals_mod.knn_normals_rbc(wf)))
+    # K8 at the GICP "knn_rbc" cell's shape (16384 points: n_r 128, same
+    # bins), and on the adversarial sets of sensors/knn_sets.py.
+    wg = torch.from_numpy(wavy_surface_pair(M)[0]).to(dev)
+    k8s_args, k8s_kw = _capture(normals_mod, "bin_knn_moments",
+                                lambda: normals_mod.knn_normals_rbc(wg))
+    k8_err = max(k8_err, _check_k8(km, "16384", k8s_args, k8s_kw)[0])
+    for name in knn_sets.ADVERSARIAL:
+        *arrays, k = knn_sets.adversarial(name)
+        a = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in arrays)
+        k8_err = max(k8_err, _check_k8(km, f"adversarial {name}", a, {"k": k})[0])
 
     # ---- 2f. K1, K7 and K3 at the 16x shape, as the steps hand them --------
     # The LiDAR PLANE step runs K1 (n_r 2048) and K7 plane (cq 192, cb 256);
@@ -724,7 +835,7 @@ def main() -> None:
         st0, wm, build_index(wf, prm_d, cfg_lg), prm_d, cfg_lg))
     k7x_modes = {"plane": k7x_args, "plane_sym": (a, dict(kw, mode="plane_sym")), "gicp": (a, kw)}
     del index_l
-    err16 = {"bin_table": 0.0}  # K2 at 16x is bitwise (2d)
+    err16 = {"bin_table": err16_k2}  # K2 at 16x is bitwise (2d)
     _, _, err16["rep_assign_counts"], err16["rep_assign"] = _check_rep_assign(
         fs, *k1x_args[0], "LiDAR step")
     for name, kernel, twin, (a, kw) in (
@@ -1090,14 +1201,15 @@ def main() -> None:
         "rep_assign_counts": (fs.rep_assign_counts, fs.rep_assign_counts_ref,
                               (moving, C, srow), {}),
         "rep_assign": (fs.rep_assign, fs.rep_assign_ref, (moving, C, srow), {}),
-        "bin_table": (tb.bin_table, tb.bin_table_ref, (sorted_rows, offsets),
-                      {"capacity": cfg.query_capacity}),
+        "bin_table": (tb.bin_table, _k2_twin, *k2_gather),
         "bin_point_moments": (fs.bin_point_moments, fs.bin_point_moments_ref, k3_args,
                               {"weighted": True}),
         "bin_min_dists": (fs.bin_min_dists, fs.bin_min_dists_ref, k4_args, {}),
         "brute_nn": (bn.brute_nn, bn.brute_nn_ref, k6_args, {}),
         "rep_top2_counts": (km.rep_top2_counts, km.rep_top2_counts_ref, k9_args, {}),
         "bin_knn_moments": (km.bin_knn_moments, km.bin_knn_moments_ref, k8_args, k8_kw),
+        "bin_knn_moments@16384": (km.bin_knn_moments, km.bin_knn_moments_ref, k8s_args,
+                                  k8s_kw),
         "rep_assign_counts@16x": (fs.rep_assign_counts, fs.rep_assign_counts_ref, *k1x_args),
         **{f"bin_gn_moments@16x {mode}": (fg.bin_gn_moments, fg.bin_gn_moments_ref, *c)
            for mode, c in k7x_modes.items()},
@@ -1112,17 +1224,22 @@ def main() -> None:
     for case, a in k5_cases.items():
         key = "bin_search@" if "n_r=16" in case else "bin_search "
         cases[key + case] = (bs.bin_search, bs.bin_search_ref, a, {})
-    for d, (rows, starts) in k2x_args.items():
-        cases[f"bin_table@16x d={d}"] = (tb.bin_table, tb.bin_table_ref, (rows, starts),
-                                         {"capacity": cap16})
+    for d, (a, kw) in k2x_args.items():
+        cases[f"bin_table@16x d={d}"] = (tb.bin_table, _k2_twin, a, kw)
     # Twins that sweep a large set (K6's 16384 x 16384, K1 and K9 over
     # 262144 x 2048 scores, K8 over 2048 bins): 5 calls per timing, not 20.
     twin_reps = {"brute_nn": 5, "rep_top2_counts": 5, "bin_knn_moments": 5,
+                 "bin_knn_moments@16384": 5,
                  "rep_assign_counts@16x": 5, "bin_point_moments@16x": 5,
                  **{f"bin_gn_moments@16x {mode}": 5 for mode in k7x_modes}}
-    times = {}
+    times, pr4 = {}, {}
     for key, (kernel, twin, a, kw) in cases.items():
-        bound = _bound(*_work(key.split()[0].split("@")[0], a, kw, kernel(*a, **kw)))
+        out = kernel(*a, **kw)
+        bound = _bound(*_work(key.split()[0].split("@")[0], a, kw, out))
+        if key.startswith("bin_knn_moments"):
+            pr4[key] = _bound(_k8_pr4_ms(a, out), _work("bin_knn_moments", a, kw, out)[1])
+            print(f"{key}: bound of the first design's count {pr4[key][0]} ms "
+                  f"({pr4[key][1]})", flush=True)
         k_ms, t_ms = float("inf"), float("inf")
         for _ in range(3):  # alternate kernel and twin; keep each minimum
             k_ms = min(k_ms, _cuda_ms(lambda f=kernel, a=a, kw=kw: f(*a, **kw)))
@@ -1165,11 +1282,17 @@ def main() -> None:
     # 16x paths run also give their error there apart (max_abs_err_16x), and
     # K1, K3 and K7 their time and bound at the 16x step shape.
     at16 = {"rep_assign_counts": "rep_assign_counts@16x",
+            "bin_table": "bin_table@16x d=8",
             "bin_point_moments": "bin_point_moments@16x",
             "bin_gn_moments": "bin_gn_moments@16x plane"}
     r6 = k6_rescored.double()
+    k8x = "bin_knn_moments@16384"
     extra = {"brute_nn": {"rescored_mean": float(r6.mean()), "rescored_max": int(r6.max()),
-                          "margin_headroom": k6_headroom, "ms_no_rescore": k6_none}}
+                          "margin_headroom": k6_headroom, "ms_no_rescore": k6_none},
+             "bin_knn_moments": {"bound_ms_pr4": pr4["bin_knn_moments"][0],
+                                 "ms_16384": times[k8x][0], "plain_ms_16384": times[k8x][1],
+                                 "bound_ms_16384": times[k8x][2],
+                                 "bound_ms_pr4_16384": pr4[k8x][0]}}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": max(err, err16.get(name, 0)),
                 "ms": times[name][0], "plain_ms": times[name][1],

@@ -14,7 +14,9 @@
    value give a threshold, and every candidate at or below it enters the
    neighbourhood (ties and near-ties may admit a few more than k). Then
    ``S1 = W b`` and ``M2 = W (b b^T)`` with W the 0/1 membership, and
-   ``C = M2 - S1 S1^T / n``.
+   ``C = M2 - S1 S1^T / n``. The twin counts the row at each halving; the
+   kernel selects the k-th value once, exactly, and halves on scalars,
+   which gives the same threshold bit for bit.
 
 Each kernel has a plain twin with the same math (``*_ref``): the CPU path
 and the golden of the on-card check. The twins round every value that

@@ -44,8 +44,9 @@ SIGNATURES = {
     "icp_rep_assign_counts": [_P, _P, _P, _I, _I, _P, _P, _P],
     # moving8, C, srow, m, n_r, rid, stream
     "icp_rep_assign": [_P, _P, _P, _I, _I, _P, _P],
-    # sorted_rows, starts, m, d, n_r, capacity, out, stream
-    "icp_bin_table": [_P, _P, _I, _I, _I, _I, _P, _P],
+    # (source, row stride, lanes) x 3, order (or null), starts, m, n_r,
+    # capacity, out, stream
+    "icp_bin_table": [_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P],
     # mg, qvalid, reps, bins_c, sq_b_masked, G, b_row, scal [alpha, delta],
     # n_r, cq, cb, weighted, robust, P, stream
     "icp_bin_point_moments": [_P, _P, _P, _P, _P, _P, _P, _P,

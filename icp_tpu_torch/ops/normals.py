@@ -261,10 +261,10 @@ def _knn_rbc_tail(p: torch.Tensor, valid: torch.Tensor, rep_ids: torch.Tensor,
     cq = max(((3 * mean_occ // 2 + 7) // 8) * 8, 16)
     p_nan = torch.where(valid[:, None], p, float("nan"))
     ids = torch.arange(m, dtype=p.dtype, device=p.device)[:, None]
-    g1 = group_rows_by_bin(rep_ids[:, 0].contiguous(), n_r, cq,
-                           (torch.cat([p_nan, ids], dim=1),), counts=counts[0])
-    qp = g1.grouped[0][..., :3]  # (n_r, cq, 3) rows of the 4-wide table
-    qid = g1.grouped[0][..., 3].to(torch.int64)
+    g1 = group_rows_by_bin(rep_ids[:, 0].contiguous(), n_r, cq, (p_nan, ids),
+                           counts=counts[0])
+    qp = g1.grouped[0]  # (n_r, cq, 3) rows of the 4-wide table
+    qid = g1.grouped[1][..., 0].to(torch.int64)
     qvalid = g1.valid & torch.isfinite(qp[..., 0])
     parts, vparts = [qp], [g1.valid]
     for j in range(1, multi_assign):

@@ -3,12 +3,12 @@
 
 The RBC search needs its points bin-major in a padded (n_bins, capacity, d)
 table with a validity mask: one stable sort gives the order, the counts give
-the offsets, one row gather moves the rows into bin-major order, and the
-padded table is built by :func:`icp_tpu_torch.kernels.table_build.bin_table`
-(the CUDA kernel K2 on CUDA tensors). :func:`group_rows_by_bin` is the hot
-path; :func:`group_by_bin` also keeps the member table of original indices,
-which the original-order search (``rbc.search.rbc_search``) scatters back
-through.
+the offsets, and :func:`icp_tpu_torch.kernels.table_build.bin_table` gathers
+the padded table straight from the unsorted row sources through the order
+(the CUDA kernel K2 on CUDA tensors; no concatenated or sorted copy of the
+rows). :func:`group_rows_by_bin` is the hot path; :func:`group_by_bin` also
+keeps the member table of original indices, which the original-order
+search (``rbc.search.rbc_search``) scatters back through.
 """
 
 from __future__ import annotations
@@ -84,17 +84,16 @@ def group_rows_by_bin(bin_ids: torch.Tensor, n_bins: int, capacity: int,
     Args:
       bin_ids: (n,) int32 bin of each row.
       n_bins, capacity: table shape.
-      rows_list: tuple of (n, d_i) float32 tensors; they are concatenated,
-        permuted and tabled once, then split back (d_i may be 0).
+      rows_list: tuple of (n, d_i) float32 tensors, at most three with
+        d_i > 0 on CUDA (K2's sources); they are tabled side by side in one
+        gather, then split back into views (d_i may be 0).
       counts: optional exact per-bin counts (see :func:`bin_sort_layout`).
     """
     sidx, counts, offsets, valid = bin_sort_layout(bin_ids, n_bins, capacity,
                                                    counts=counts)
-    nonempty = [rows for rows in rows_list if rows.shape[1] > 0]
+    nonempty = tuple(rows for rows in rows_list if rows.shape[1] > 0)
     if nonempty:
-        big = nonempty[0] if len(nonempty) == 1 else torch.cat(nonempty, dim=1)
-        sorted_big = torch.index_select(big, 0, sidx).contiguous()
-        table = bin_table(sorted_big, offsets, capacity=capacity)
+        table = bin_table(nonempty, offsets, capacity=capacity, order=sidx)
     grouped = []
     k = 0
     for rows in rows_list:
@@ -144,10 +143,10 @@ def group_by_bin(bin_ids: torch.Tensor, n_bins: int, capacity: int) -> GroupLayo
 
 def gather_grouped(layout: GroupLayout, rows: torch.Tensor) -> torch.Tensor:
     """``rows[member]`` as an (n_bins, capacity, d) table (padded slots
-    undefined): one row permute, then each bin's contiguous run (K2 on
+    undefined): each bin's run of the order, gathered from ``rows`` (K2 on
     CUDA tensors)."""
-    sorted_rows = torch.index_select(rows, 0, layout.order).contiguous()
-    return bin_table(sorted_rows, layout.offsets, capacity=layout.member.shape[1])
+    return bin_table(rows, layout.offsets, capacity=layout.member.shape[1],
+                     order=layout.order)
 
 
 def overflow_mask(layout: GroupLayout, bin_ids: torch.Tensor,

@@ -2,7 +2,7 @@
 """Where the time goes: icp_tpu_torch registrations under torch.profiler on
 one NVIDIA GPU.
 
-    python3 profile_port.py [--out build/profile.json] [--gate16x]
+    python3 profile_port.py [--out build/profile.json] [--gate16x | --knn-tables]
 
 For each cell, ``register`` runs twice to warm up, then once with
 ``max_iterations=8`` and thresholds 0 under ``torch.profiler`` (CPU and CUDA
@@ -15,8 +15,15 @@ and the largest device operations by name. The estimator
 With ``--gate16x`` it only times the 16x POINT registration (262144 x
 2048, ``chip_smoke.py``'s ``icp_16x`` gate) to convergence, once with K3
 and once with K3's plain twin in its place: k, the errors against the
-ground truth and the least wall time of 5 calls for each. Needs a GPU;
-there is no CPU fallback.
+ground truth and the least wall time of 5 calls for each. With
+``--knn-tables`` it times K8 on the arguments the estimator hands it at
+262144 and 16384 points, the estimator's ms per call at 262144 points, and
+the grouping's table gather at the flagship and 16x layouts (d 8 and 11:
+K2 through the order, or, in a tree whose ``bin_table`` takes no order,
+torch.cat and index_select then K2), K2 alone on the sorted rows, and the
+whole ``group_rows_by_bin``;
+copy the script into an unpacked parent tree to A/B it. Needs a GPU; there
+is no CPU fallback.
 """
 
 from __future__ import annotations
@@ -91,6 +98,81 @@ def _gate16x(dev, rounds: int = 5) -> dict:
     return out
 
 
+def _knn_tables(dev, rounds: int = 3) -> dict:
+    """Device ms (CUDA events, the least of ``rounds``) of K8 and of the
+    table gather, and the estimator's host ms per call, in this tree."""
+    import inspect
+
+    from chip_smoke import ALPHA, _cuda_ms
+    from icp_tpu_torch import ICPConfig
+    from icp_tpu_torch.icp.state import identity_state
+    from icp_tpu_torch.kernels import fused_step as fs
+    from icp_tpu_torch.kernels import knn_moments as km
+    from icp_tpu_torch.kernels import table_build as tb
+    from icp_tpu_torch.ops import normals as nm
+    from icp_tpu_torch.ops.normals import normals_for
+    from icp_tpu_torch.ops.sampling import sample_representative_indices
+    from icp_tpu_torch.rbc import grouping
+    from icp_tpu_torch.sensors.synthetic import synthetic_pair, wavy_surface_pair
+
+    def least(fn, reps=20):
+        return min(_cuda_ms(fn, reps) for _ in range(rounds))
+
+    out = {}
+    for m in (262144, 16384):
+        cloud = torch.from_numpy(wavy_surface_pair(m)[0]).to(dev)
+        seen = []
+        real = nm.bin_knn_moments
+        nm.bin_knn_moments = lambda *a, **kw: seen.append((a, kw)) or real(*a, **kw)
+        try:
+            nm.knn_normals_rbc(cloud)
+        finally:
+            nm.bin_knn_moments = real
+        a, kw = seen[0]
+        out[f"K8 at {m} points {tuple(a[1].shape)}"] = least(
+            lambda: km.bin_knn_moments(*a, **kw), 5)
+        if m == 262144:
+            walls = []
+            for _ in range(rounds):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    nm.knn_normals_rbc(cloud)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) / 5 * 1e3)
+            out["knn_normals_rbc host ms per call at 262144"] = min(walls)
+
+    takes_order = "order" in inspect.signature(tb.bin_table).parameters
+    alpha = torch.tensor(ALPHA, dtype=torch.float32, device=dev)
+    st = identity_state(torch.float32, dev)
+    G, b_row = fs.prep_similarity(st.q, st.t, st.s)
+    for name, m, n_r, cap in (("flagship", 16384, 256, 96), ("16x", 262144, 2048, 256)):
+        fixed, moving = (torch.from_numpy(x).to(dev) for x in synthetic_pair(m, seed=0))
+        reps = fixed[sample_representative_indices(
+            m, n_r, ICPConfig(m=m, n_r=n_r).rep_grid, device=dev).long()]
+        C, srow = fs.prep_rep_assign(reps, alpha, G.contiguous(), b_row)
+        rid, counts = fs.rep_assign_counts(moving, C.contiguous(), srow)
+        sidx, _, offsets, _ = grouping.bin_sort_layout(rid, n_r, cap, counts=counts)
+        for srcs in ((moving,), (moving, normals_for(moving, "auto"))):
+            d = sum(x.shape[1] for x in srcs)
+            rows = torch.index_select(srcs[0] if len(srcs) == 1 else torch.cat(srcs, dim=1),
+                                      0, sidx).contiguous()
+            out[f"K2 on sorted rows {name} d {d}"] = least(
+                lambda r=rows: tb.bin_table(r, offsets, capacity=cap))
+            if takes_order:
+                gather = lambda s=srcs: tb.bin_table(s, offsets, capacity=cap, order=sidx)
+            else:
+                gather = lambda s=srcs: tb.bin_table(torch.index_select(
+                    s[0] if len(s) == 1 else torch.cat(s, dim=1), 0, sidx).contiguous(),
+                    offsets, capacity=cap)
+            out[f"gather {name} d {d}"] = least(gather)
+            out[f"group_rows_by_bin {name} d {d}"] = least(
+                lambda s=srcs: grouping.group_rows_by_bin(rid, n_r, cap, s, counts=counts))
+    for key, ms in out.items():
+        print(f"{key}: {ms} ms (K2 takes the order: {takes_order})", flush=True)
+    return out
+
+
 def _cells(dev) -> dict:
     """Each cell's profile of 8 steps, and the estimator's of one call."""
     from chip_smoke import ALPHA, _rendered_pair
@@ -138,6 +220,8 @@ def main() -> None:
     parser.add_argument("--out", default="build/profile.json")
     parser.add_argument("--gate16x", action="store_true",
                         help="only the 16x POINT gate to convergence, K3 against its twin")
+    parser.add_argument("--knn-tables", action="store_true",
+                        help="only K8, the estimator and the table gather, timed")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_port: torch.cuda.is_available() is False; "
@@ -149,6 +233,8 @@ def main() -> None:
     results = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
     if args.gate16x:
         results["gate16x"] = _gate16x(dev)
+    elif args.knn_tables:
+        results["knn_tables"] = _knn_tables(dev)
     else:
         results["cells"] = _cells(dev)
     out = Path(args.out)

@@ -13,6 +13,8 @@ import torch
 
 from icp_tpu_torch.sensors.synthetic import synthetic_pair
 from icp_tpu_torch.sensors.brute_sets import ADVERSARIAL, adversarial
+from icp_tpu_torch.sensors.knn_sets import ADVERSARIAL as KNN_ADVERSARIAL
+from icp_tpu_torch.sensors.knn_sets import adversarial as knn_adversarial
 
 pytestmark = pytest.mark.cuda
 
@@ -508,17 +510,22 @@ def _knn_moment_tensors(dev, seed=0):
 
 
 def _check_knn_moments(args, k):
+    """K8 against its twin: n bitwise, the components within 1e-5 of each
+    query's largest, and a second launch bitwise equal to the first."""
     from icp_tpu_torch.kernels import knn_moments as km
 
     before = km.bin_knn_moments.launches
     comps, cnt = km.bin_knn_moments(*args, k=k)
+    again = km.bin_knn_moments(*args, k=k)
     comps_t, cnt_t = km.bin_knn_moments_ref(*args, k=k)
     torch.cuda.synchronize()
-    assert km.bin_knn_moments.launches == before + 1
+    assert km.bin_knn_moments.launches == before + 2
     assert torch.equal(cnt, cnt_t)
     got, want = torch.stack(comps), torch.stack(comps_t)
     scale = want.abs().amax(dim=0).clamp(min=1.0)
     assert float(((got - want).abs() / scale).max()) <= 1e-5
+    assert torch.equal(got.view(torch.int32), torch.stack(again[0]).view(torch.int32))
+    assert torch.equal(cnt, again[1])
     return comps, cnt
 
 
@@ -533,10 +540,18 @@ def test_bin_knn_moments_kernel_matches_twin(cuda_dev):
 def test_bin_knn_moments_kernel_at_the_lidar_shape(cuda_dev):
     """K8 on the tables the estimator builds at the LiDAR shape (262144
     points, n_r 2048, cq 192, cb 384, k 16), taken from its own call."""
+    args, kw = _estimator_k8_args(cuda_dev, 262144)
+    assert tuple(args[0].shape) == (2048, 192, 3) and tuple(args[1].shape) == (2048, 384, 3)
+    _check_knn_moments(args, kw["k"])
+
+
+def _estimator_k8_args(dev, m):
+    """The (args, kwargs) that knn_normals_rbc hands K8 on the wavy surface
+    of m points."""
     from icp_tpu_torch.ops import normals as nm
     from icp_tpu_torch.sensors.synthetic import wavy_surface_pair
 
-    fixed = torch.from_numpy(wavy_surface_pair(262144)[0]).to(cuda_dev)
+    fixed = torch.from_numpy(wavy_surface_pair(m)[0]).to(dev)
     seen = []
     real = nm.bin_knn_moments
     nm.bin_knn_moments = lambda *a, **kw: seen.append((a, kw)) or real(*a, **kw)
@@ -544,9 +559,49 @@ def test_bin_knn_moments_kernel_at_the_lidar_shape(cuda_dev):
         nm.knn_normals_rbc(fixed)
     finally:
         nm.bin_knn_moments = real
-    args, kw = seen[0]
-    assert tuple(args[0].shape) == (2048, 192, 3) and tuple(args[1].shape) == (2048, 384, 3)
+    return seen[0]
+
+
+def test_bin_knn_moments_kernel_at_the_16384_shape(cuda_dev):
+    """K8 at the GICP "knn_rbc" cell's shape (16384 points: n_r 128, cq 192,
+    cb 384, k 16), on the arguments the estimator hands it."""
+    args, kw = _estimator_k8_args(cuda_dev, 16384)
+    assert tuple(args[0].shape) == (128, 192, 3) and tuple(args[1].shape) == (128, 384, 3)
     _check_knn_moments(args, kw["k"])
+
+
+@pytest.mark.parametrize("name", KNN_ADVERSARIAL)
+def test_bin_knn_moments_kernel_on_adversarial_sets(cuda_dev, name):
+    """K8 on sensors/knn_sets.py: ties at the k-th value, all-invalid bins,
+    NaN queries, negative d2, k 1 / 12 / 16 / 40, cb 100 and 1024."""
+    *arrays, k = knn_adversarial(name)
+    _check_knn_moments(tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda_dev)
+                             for a in arrays), k)
+
+
+@pytest.mark.parametrize("m, n_r, cap", [(16384, 256, 96), (262144, 2048, 256)])
+def test_bin_table_gather_bitwise(cuda_dev, m, n_r, cap):
+    """K2's gather form at the flagship and 16x layouts: the table from one
+    to three unsorted sources (column slices among them) through the
+    bin-major order, bitwise the twin of the gathered, concatenated rows
+    (widths 8, 11, 12, 4 and 3)."""
+    from icp_tpu_torch.kernels import table_build as tb
+    from icp_tpu_torch.rbc.grouping import bin_sort_layout
+
+    g = np.random.default_rng(0)
+    ids = torch.from_numpy(g.integers(0, n_r, m).astype(np.int32)).to(cuda_dev)
+    sidx, _, offsets, _ = bin_sort_layout(ids, n_r, cap)
+    pts = torch.from_numpy(g.normal(size=(m, 8)).astype(np.float32)).to(cuda_dev)
+    nrm = torch.from_numpy(g.normal(size=(m, 3)).astype(np.float32)).to(cuda_dev)
+    col = torch.arange(m, dtype=torch.float32, device=cuda_dev)[:, None]
+    before = tb.bin_table.launches
+    cases = [(pts,), (pts, nrm), (pts, col, nrm), (pts[:, :3], col), (pts[:, :3],)]
+    for srcs in cases:
+        got = tb.bin_table(srcs, offsets, capacity=cap, order=sidx)
+        want = tb.bin_table_ref(tb.gathered_rows(srcs, sidx), offsets, capacity=cap)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert tb.bin_table.launches == before + len(cases)
 
 
 @pytest.fixture(scope="module")

@@ -50,7 +50,9 @@ BRUTE with K6, and K1′) add:
 2c. K5 on the tables the
     unfused step passes it (taken from icp_step itself) on the synthetic
     flagship pair (V = 8), on the rendered pair with normals (V = 12) and
-    at n_r = 16 (cb = 2048): scores and payloads bitwise; K3 on what the
+    at n_r = 16 and 8 (cb = 2048, 4096), and on the all-equal bins of
+    sensors/search_sets.py (cb 128, 2048, 4096: every live slot ties, the
+    first must win): scores and payloads bitwise; K3 on what the
     fused step hands it at n_r 32 and 16 (cq 768 / 1536, cb 1024 / 2048:
     several query and bin tiles) within 1e-4 of max|P| and repeating
     bitwise; K7 (three modes) on what GICP steps hand it at n_r 32 and 16
@@ -82,10 +84,13 @@ Slice 5 (kNN normals of unorganized clouds: K9 rep_top2_counts and K8
 bin_knn_moments) adds, on the reference's wavy-surface pairs
 (icp_tpu_torch.sensors.synthetic.wavy_surface_pair):
 
-2e. K9 at the LiDAR shape (262144 raw points, 2048 Morton reps) against its
-    twin: counts exact and equal to the bincounts of the kernel's own ids,
-    i1 and i2 agreement >= 99.9 % with every disagreement a float64
-    near-tie; K8 on the tables the estimator builds there (n_r 2048, cq 192,
+2e. K9 at the LiDAR shape (262144 raw points, 2048 Morton reps), at the
+    GICP "knn_rbc" cell's 16384 points (128 reps) and on the top-2 sets of
+    sensors/knn_sets.py (among them exact ties between reps in different
+    warps and chunks, at 4 and at 8 points a thread) against its twin: i1,
+    i2 and the counts bitwise,
+    the counts the bincounts of the kernel's own ids; K8 on the tables the
+    estimator builds there (n_r 2048, cq 192,
     cb 384, k 16): n bitwise, components within 1e-5 of each query's
     largest, a second launch bitwise equal to the first, and the normals of
     the two within cos 0.9999 on >= 99.9 % of the slots. K9's and K8's
@@ -107,7 +112,7 @@ bin_knn_moments) adds, on the reference's wavy-surface pairs
     (the same zero set, |dn| <= 1e-4 on >= 99.9 % of rows); GICP with
     "knn_rbc" at 16384 points, and the reference's 4x and 16x POINT gates
     (65536 x 1024, 262144 x 2048), each within the gate.
-4d. Times: K9, K8 (also at 16384 points), K7 (three modes), K3, K1 and K2
+4d. Times: K9 and K8 (also at 16384 points), K7 (three modes), K3, K1 and K2
     (through the order) at the 16x shape against their twins, the estimator's ms per call
     at 262144 points and the
     marginal ms per iteration of the LiDAR PLANE registration and the 4x /
@@ -118,9 +123,11 @@ the main path, its largest error against the twin over every shape checked
 (and, for K1, K1′, K2, K3 and K7, max_abs_err_16x at the 16x shape apart), its
 time and the twin's, and its
 bound, the larger of the time of the operations of the work and of its
-bytes (each input read once, each output written once) over 3.35 TB/s. The
+bytes (each input read once, each output written once; for K5 only the
+rows of finite slots and the winning payload rows) over 3.35 TB/s. The
 operations are fp32 over 67 TFLOP/s (K3, K4 and K7 count the pairs of valid
-query slots and finite bin slots); K6's are the work of its design: 3 x 2 x
+query slots and finite bin slots, K5 every query slot against its bin's
+finite slots); K6's are the work of its design: 3 x 2 x
 8 TF32 flops per pair over 495 TFLOP/s, or its fp32 epilogue (the fma of the
 score and a min, 3 operations per pair) over 67 TFLOP/s, whichever takes
 longer. K1, K2, K3 and K7 add ms_16x and bound_ms_16x at the 16x step shape,
@@ -130,7 +137,11 @@ the function needs (the d2 cross, 21 operations a pair of a query and a live
 candidate, 40 per neighbour, 100 per query); bound_ms_pr4 is the count of its
 first design (60 a query-slot pair: the d2, 18 counting passes, the
 membership), kept to compare with older records; K8 adds ms_16384,
-plain_ms_16384 and both bounds there. library_ms is null, since
+plain_ms_16384 and both bounds there, K9 ms_16384, plain_ms_16384 and
+bound_ms_16384. K5 adds bound_ms_padded (every padded slot pair and every
+byte of its inputs, its count before its live-slot design) and its time, the twin's and both bounds at
+n_r 16 (ms_n_r16, plain_ms_n_r16, bound_ms_n_r16, bound_ms_padded_n_r16).
+library_ms is null, since
 no single PyTorch call computes any of these functions. The last line is
 {"ok": true, "device": {...}}.
 """
@@ -402,8 +413,9 @@ def _work(name: str, args, kwargs, out) -> tuple[float, int]:
     elif name == "brute_nn":
         pairs = a[0].shape[0] * a[1].shape[0]
         return max(48 * pairs / PEAK_TF32, 3 * pairs / PEAK_FP32) * 1e3, nbytes
-    elif name == "bin_search":
-        ops = 50 * a[0].shape[0] * a[0].shape[1] * a[1].shape[1]
+    elif name == "bin_search":  # every query slot against its bin's finite slots
+        ops = 50 * a[0].shape[1] * float(torch.isfinite(a[2]).sum())
+        nbytes = _k5_live_bytes(a, out)
     elif name == "rep_top2_counts":
         ops = 21 * a[0].shape[0] * a[1].shape[0]
     elif name == "bin_knn_moments":  # the d2 cross, 40 per neighbour
@@ -419,6 +431,30 @@ def _work(name: str, args, kwargs, out) -> tuple[float, int]:
         # the finite slots of its bin, not every padded slot.
         ops = 50 * float((kept * live).sum()) + 400 * float(kept.sum())
     return ops / PEAK_FP32 * 1e3, nbytes
+
+
+def _k5_live_bytes(args, out) -> int:
+    """Bytes K5's function needs: the queries and |b|^2 read once, the rows
+    of the finite slots only, the winning payload rows (distinct per bin),
+    and both outputs written once."""
+    qg_w, bins_c, sq_b, vals = args
+    best, matched = out
+    n_r, cq, v = matched.shape
+    bin_id = torch.arange(n_r, device=matched.device, dtype=torch.float32)
+    rows = torch.cat([bin_id.repeat_interleave(cq)[:, None], matched.reshape(-1, v)], 1)
+    n_win = torch.unique(rows, dim=0).shape[0]
+    n_fin = int(torch.isfinite(sq_b).sum())
+    f = 4  # bytes a float
+    return f * (qg_w.numel() + sq_b.numel() + n_fin * bins_c.shape[2] + n_win * v
+                + best.numel() + matched.numel())
+
+
+def _k5_padded_ms(args) -> float:
+    """ms of K5's pairs counted over every padded slot (50 operations a
+    query slot and bin slot) at the card's fp32 peak: its bound before its
+    live-slot search, kept to compare with older records."""
+    n_r, cq = args[0].shape[:2]
+    return 50 * n_r * cq * args[1].shape[1] / PEAK_FP32 * 1e3
 
 
 def _k8_pr4_ms(args, out) -> float:
@@ -524,7 +560,7 @@ def main() -> None:
     from icp_tpu_torch.rbc import search as search_mod
     from icp_tpu_torch.sensors.synthetic import synthetic_pair as _synthetic_pair
     from icp_tpu_torch.sensors.synthetic import wavy_surface_pair
-    from icp_tpu_torch.sensors import brute_sets, knn_sets
+    from icp_tpu_torch.sensors import brute_sets, knn_sets, search_sets
 
     dev = torch.device("cuda", 0)
 
@@ -642,17 +678,17 @@ def main() -> None:
     prm_d = params.to(dev)
     cfg_u = ICPConfig(fused_point=False)
     cfg_pu = ICPConfig(objective=Objective.PLANE, estimate_scale=False, fused_gn=False)
-    cfg_16 = ICPConfig(n_r=16, fused_point=False)
-    index_16 = build_index(fixed, prm_d, cfg_16)
     k5_cases = {  # name -> the arguments the unfused step hands K5
         "V=8 flagship": _capture(search_mod, "bin_search", lambda: icp_step(
             st0, moving, index, prm_d, cfg_u))[0],
         "V=12 rendered": _capture(search_mod, "bin_search", lambda: icp_step(
             st0, lb_d, index_p, prm_d, cfg_pu))[0],
-        f"V=8 n_r=16 cb={cfg_16.bin_capacity}": _capture(
-            search_mod, "bin_search", lambda: icp_step(st0, moving, index_16, prm_d,
-                                                       cfg_16))[0],
     }
+    for n_r in (16, 8):  # few large bins: several query tiles and bin tiles
+        cfg_k = ICPConfig(n_r=n_r, fused_point=False)
+        k5_cases[f"V=8 n_r={n_r} cb={cfg_k.bin_capacity}"] = _capture(
+            search_mod, "bin_search", lambda: icp_step(
+                st0, moving, build_index(fixed, prm_d, cfg_k), prm_d, cfg_k))[0]
     k5_err = 0.0
     for name, a in k5_cases.items():
         best_k, matched_k = bs.bin_search(*a)
@@ -660,11 +696,31 @@ def main() -> None:
         torch.cuda.synchronize()
         ok = _bitwise(best_k, best_t) and _bitwise(matched_k, matched_t)
         k5_err = max(k5_err, _finite_err(best_k, best_t), _finite_err(matched_k, matched_t))
+        live = int(torch.isfinite(a[2]).sum())
         print(f"K5 bin_search {name}: qg_w {tuple(a[0].shape)}, bins {tuple(a[1].shape)}, "
-              f"payload {tuple(a[3].shape)}; {int(torch.isinf(best_t).sum())} +inf "
-              f"slots; scores and payloads bitwise: {ok}", flush=True)
+              f"payload {tuple(a[3].shape)}; {live} finite of {a[2].numel()} bin slots; "
+              f"{int(torch.isinf(best_t).sum())} +inf scores; scores and payloads "
+              f"bitwise: {ok}", flush=True)
         if not ok:
             raise AssertionError(f"K5 {name} differs from its twin")
+    # K5 on bins whose live slots all hold one point (sensors/search_sets.py):
+    # the warps' partial minima tie, in one staged tile (cb 128) and over
+    # several (cb 2048, 4096); the first live slot must win.
+    for n_r, cq, cb, v in ((256, 96, 128, 8), (256, 96, 128, 12), (16, 1536, 2048, 8),
+                           (8, 3072, 4096, 12)):
+        a = tuple(torch.from_numpy(x).to(dev) for x in search_sets.all_equal(n_r, cq, cb, v))
+        best_k, matched_k = bs.bin_search(*a)
+        best_t, matched_t = bs.bin_search_ref(*a)
+        live = torch.isfinite(a[2])
+        first = torch.where(live.any(dim=1), live.int().argmax(dim=1), 0)
+        first_ok = torch.equal(matched_k, a[3][torch.arange(n_r, device=dev), first][:, None]
+                               .expand(-1, cq, -1))
+        ok = _bitwise(best_k, best_t) and _bitwise(matched_k, matched_t)
+        k5_err = max(k5_err, _finite_err(best_k, best_t), _finite_err(matched_k, matched_t))
+        print(f"K5 bin_search all-equal slots (n_r {n_r}, cq {cq}, cb {cb}, V {v}): scores "
+              f"and payloads bitwise: {ok}; first live slot wins: {first_ok}", flush=True)
+        if not (ok and first_ok):
+            raise AssertionError(f"K5 all-equal n_r={n_r} cb={cb} differs from its twin")
 
     # K3 with few, large bins, where it walks several query and bin tiles:
     # n_r 32 gives cq 768 / cb 1024, n_r 16 cq 1536 / cb 2048.
@@ -761,36 +817,33 @@ def main() -> None:
     knn_args = _capture_all(normals_mod, ("rep_top2_counts", "bin_knn_moments"),
                             lambda: normals_mod.knn_normals_rbc(wf))
     k9_args = knn_args["rep_top2_counts"][0]
-    p_l, reps_l = k9_args
-    if reps_l.shape[0] != N_R_L:
-        raise AssertionError(f"the estimator chose {reps_l.shape[0]} reps, not {N_R_L}")
-    top_k = km.rep_top2_counts(*k9_args)
-    top_t = km.rep_top2_counts_ref(*k9_args)
-    torch.cuda.synchronize()
-    for j in range(2):
-        if not torch.equal(top_k[2][j], torch.bincount(top_k[j], minlength=N_R_L).to(torch.int32)):
-            raise AssertionError(f"K9 counts[{j}] != bincount of its own ids")
-    r64 = reps_l.double()
-    sq64 = torch.sum(r64 * r64, dim=1)
-    k9_worst, k9_msg = 0.0, []
-    for j in range(2):
-        diff = top_k[j] != top_t[j]
-        agree = 1.0 - float(diff.float().mean())
-        k9_msg.append(f"i{j + 1} agreement {agree:.6f} ({int(diff.sum())} of {M_L} differ)")
-        if agree < 0.999:
-            raise AssertionError(f"K9 i{j + 1} agreement {agree} < 0.999")
-        if bool(diff.any()):  # the raw score |r|^2 - 2 p.r in float64
-            rows = torch.nonzero(diff)[:, 0]
-            s64 = sq64[None, :] - 2.0 * (p_l[rows].double() @ r64.T)
-            a = s64.gather(1, top_k[j][rows].long()[:, None])
-            b = s64.gather(1, top_t[j][rows].long()[:, None])
-            k9_worst = max(k9_worst, float(((a - b).abs() / b.abs().clamp(min=1.0)).max()))
-    k9_err = int((top_k[2] - top_t[2]).abs().max())
-    print(f"K9 rep_top2_counts {M_L} x {N_R_L}: counts equal the bincounts of its ids, "
-          f"max|dcounts| vs twin {k9_err}; {', '.join(k9_msg)}; worst float64 "
-          f"excess of a differing pick {k9_worst:.3e}", flush=True)
-    if k9_worst > 1e-5:
-        raise AssertionError(f"K9 differing pick is not a near-tie: {k9_worst}")
+    if k9_args[1].shape[0] != N_R_L:
+        raise AssertionError(f"the estimator chose {k9_args[1].shape[0]} reps, not {N_R_L}")
+    # K9 bitwise at the LiDAR shape, at the GICP "knn_rbc" cell's 16384
+    # points (n_r 128) and on the top-2 sets of sensors/knn_sets.py (exact
+    # ties, repeated reps, zero points).
+    wg = torch.from_numpy(wavy_surface_pair(M)[0]).to(dev)
+    k9s_args = _capture(normals_mod, "rep_top2_counts",
+                        lambda: normals_mod.knn_normals_rbc(wg))[0]
+    k9_sets = {f"LiDAR {M_L} x {N_R_L}": k9_args, f"{M} points": k9s_args} | {
+        name: tuple(torch.from_numpy(x).to(dev) for x in knn_sets.top2(name))
+        for name in knn_sets.TOP2}
+    k9_err = 0
+    for name, a in k9_sets.items():
+        top_k = km.rep_top2_counts(*a)
+        top_t = km.rep_top2_counts_ref(*a)
+        torch.cuda.synchronize()
+        n_r = a[1].shape[0]
+        for j in range(2):
+            if not torch.equal(top_k[2][j], torch.bincount(top_k[j], minlength=n_r).to(torch.int32)):
+                raise AssertionError(f"K9 {name} counts[{j}] != bincount of its own ids")
+        n_diff = [int((top_k[j] != top_t[j]).sum()) for j in range(2)]
+        k9_err = max(k9_err, int((top_k[2] - top_t[2]).abs().max()))
+        print(f"K9 rep_top2_counts {name} ({a[0].shape[0]} points, {n_r} reps): counts equal "
+              f"the bincounts of its ids; i1, i2 off the twin on {n_diff[0]}, {n_diff[1]} "
+              f"points; counts bitwise: {torch.equal(top_k[2], top_t[2])}", flush=True)
+        if not all(torch.equal(g, w) for g, w in zip(top_k, top_t)):
+            raise AssertionError(f"K9 {name} differs from its twin")
 
     k8_args, k8_kw = knn_args["bin_knn_moments"]
     k8_err, _ = _check_k8(km, "LiDAR", k8_args, k8_kw)
@@ -809,7 +862,6 @@ def main() -> None:
                                           lambda: normals_mod.knn_normals_rbc(wf)))
     # K8 at the GICP "knn_rbc" cell's shape (16384 points: n_r 128, same
     # bins), and on the adversarial sets of sensors/knn_sets.py.
-    wg = torch.from_numpy(wavy_surface_pair(M)[0]).to(dev)
     k8s_args, k8s_kw = _capture(normals_mod, "bin_knn_moments",
                                 lambda: normals_mod.knn_normals_rbc(wg))
     k8_err = max(k8_err, _check_k8(km, "16384", k8s_args, k8s_kw)[0])
@@ -1207,6 +1259,7 @@ def main() -> None:
         "bin_min_dists": (fs.bin_min_dists, fs.bin_min_dists_ref, k4_args, {}),
         "brute_nn": (bn.brute_nn, bn.brute_nn_ref, k6_args, {}),
         "rep_top2_counts": (km.rep_top2_counts, km.rep_top2_counts_ref, k9_args, {}),
+        "rep_top2_counts@16384": (km.rep_top2_counts, km.rep_top2_counts_ref, k9s_args, {}),
         "bin_knn_moments": (km.bin_knn_moments, km.bin_knn_moments_ref, k8_args, k8_kw),
         "bin_knn_moments@16384": (km.bin_knn_moments, km.bin_knn_moments_ref, k8s_args,
                                   k8s_kw),
@@ -1222,13 +1275,16 @@ def main() -> None:
         cases[f"bin_point_moments {robust}"] = (fs.bin_point_moments,
                                                fs.bin_point_moments_ref, a, kw)
     for case, a in k5_cases.items():
+        if "n_r=8" in case:
+            continue
         key = "bin_search@" if "n_r=16" in case else "bin_search "
         cases[key + case] = (bs.bin_search, bs.bin_search_ref, a, {})
     for d, (a, kw) in k2x_args.items():
         cases[f"bin_table@16x d={d}"] = (tb.bin_table, _k2_twin, a, kw)
     # Twins that sweep a large set (K6's 16384 x 16384, K1 and K9 over
     # 262144 x 2048 scores, K8 over 2048 bins): 5 calls per timing, not 20.
-    twin_reps = {"brute_nn": 5, "rep_top2_counts": 5, "bin_knn_moments": 5,
+    twin_reps = {"brute_nn": 5, "rep_top2_counts": 5, "rep_top2_counts@16384": 5,
+                 "bin_knn_moments": 5,
                  "bin_knn_moments@16384": 5,
                  "rep_assign_counts@16x": 5, "bin_point_moments@16x": 5,
                  **{f"bin_gn_moments@16x {mode}": 5 for mode in k7x_modes}}
@@ -1240,6 +1296,11 @@ def main() -> None:
             pr4[key] = _bound(_k8_pr4_ms(a, out), _work("bin_knn_moments", a, kw, out)[1])
             print(f"{key}: bound of the first design's count {pr4[key][0]} ms "
                   f"({pr4[key][1]})", flush=True)
+        if key.startswith("bin_search"):
+            pr4[key] = _bound(_k5_padded_ms(a), sum(
+                t.numel() * t.element_size() for t in _tensors((a, kw, out))))
+            print(f"{key}: bound over every padded slot {pr4[key][0]} ms ({pr4[key][1]})",
+                  flush=True)
         k_ms, t_ms = float("inf"), float("inf")
         for _ in range(3):  # alternate kernel and twin; keep each minimum
             k_ms = min(k_ms, _cuda_ms(lambda f=kernel, a=a, kw=kw: f(*a, **kw)))
@@ -1274,10 +1335,12 @@ def main() -> None:
     }
     # A kernel with several modes reports its slowest mode and that mode's
     # bound.
+    slowest = {}
     for name in meta:
-        modes = [t for key, t in times.items() if key.split()[0] == name]
-        slow = max(modes, key=lambda t: t[0])
-        times[name] = (slow[0], max(t[1] for t in modes), slow[2], slow[3])
+        modes = [key for key in times if key.split()[0] == name]
+        slowest[name] = max(modes, key=lambda key: times[key][0])
+        slow = times[slowest[name]]
+        times[name] = (slow[0], max(times[key][1] for key in modes), slow[2], slow[3])
     # max_abs_err is the largest over every shape checked; the kernels the
     # 16x paths run also give their error there apart (max_abs_err_16x), and
     # K1, K3 and K7 their time and bound at the 16x step shape.
@@ -1286,13 +1349,20 @@ def main() -> None:
             "bin_point_moments": "bin_point_moments@16x",
             "bin_gn_moments": "bin_gn_moments@16x plane"}
     r6 = k6_rescored.double()
-    k8x = "bin_knn_moments@16384"
+    k8x, k9x = "bin_knn_moments@16384", "rep_top2_counts@16384"
+    k5x = next(key for key in times if key.startswith("bin_search@"))
     extra = {"brute_nn": {"rescored_mean": float(r6.mean()), "rescored_max": int(r6.max()),
                           "margin_headroom": k6_headroom, "ms_no_rescore": k6_none},
              "bin_knn_moments": {"bound_ms_pr4": pr4["bin_knn_moments"][0],
                                  "ms_16384": times[k8x][0], "plain_ms_16384": times[k8x][1],
                                  "bound_ms_16384": times[k8x][2],
-                                 "bound_ms_pr4_16384": pr4[k8x][0]}}
+                                 "bound_ms_pr4_16384": pr4[k8x][0]},
+             "rep_top2_counts": {"ms_16384": times[k9x][0], "plain_ms_16384": times[k9x][1],
+                                 "bound_ms_16384": times[k9x][2]},
+             "bin_search": {"bound_ms_padded": pr4[slowest["bin_search"]][0],
+                            "ms_n_r16": times[k5x][0], "plain_ms_n_r16": times[k5x][1],
+                            "bound_ms_n_r16": times[k5x][2],
+                            "bound_ms_padded_n_r16": pr4[k5x][0]}}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": max(err, err16.get(name, 0)),
                 "ms": times[name][0], "plain_ms": times[name][1],

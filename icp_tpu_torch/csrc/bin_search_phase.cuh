@@ -1,5 +1,7 @@
 // The per-bin search of K3 (bin_point_moments.cu) and K7 (bin_gn_moments.cu),
-// on live pairs only: one block of kThreads threads per bin.
+// on live pairs only: one block of kThreads threads per bin. K5
+// (bin_search.cu) shares its last-live scan (live_slots) and its bin
+// staging (stage_slots).
 //
 // For each query slot i of bin b (the JAX package's _score_core /
 // _search_core, icp_tpu/kernels/fused_step.py:449-517):
@@ -93,6 +95,38 @@ static __constant__ unsigned char kPairL[64] = {
     0, 1, 2, 3, 4, 5, 6, 1, 2, 3, 4, 5, 6, 2, 3, 4, 5, 6, 3, 4, 5, 6,
     4, 5, 6, 5, 6, 6};
 
+// The number of a bin's slots up to its last live one: the last slot whose
+// masked |b|^2 (sq_bb, in global or shared memory) is not +inf (or NaN),
+// plus one; 0 if there is none. Called once by every thread of a block of
+// kThreads threads; last_live is a __shared__ int. Every thread gets the
+// count.
+__device__ __forceinline__ int live_slots(const float* __restrict__ sq_bb, int cb,
+                                          int& last_live) {
+  if (threadIdx.x == 0) last_live = -1;
+  int my_last = -1;
+#pragma unroll 4
+  for (int c = threadIdx.x; c < cb; c += kThreads) {
+    if (sq_bb[c] < inf()) my_last = c;  // false for +inf and NaN
+  }
+  __syncthreads();  // last_live = -1 is visible
+  if (my_last >= 0) atomicMax(&last_live, my_last);
+  __syncthreads();
+  return last_live + 1;
+}
+
+// A bin's slots [base, base + n) staged by the whole block: the bf16 halves
+// of lanes 0:8 of its rows (row stride ld_b) as [c][hi0..7 | lo0..7] into
+// bin, and its masked |b|^2 into sq.
+__device__ __forceinline__ void stage_slots(const float* __restrict__ rows_b, int ld_b,
+                                            const float* __restrict__ sq_bb, int base,
+                                            int n, float* bin, float* sq) {
+  for (int i = threadIdx.x; i < n * 8; i += kThreads) {
+    const int c = i >> 3, k = i & 7;
+    bf16_split(rows_b[(base + c) * ld_b + k], bin[c * 16 + k], bin[c * 16 + 8 + k]);
+  }
+  for (int c = threadIdx.x; c < n; c += kThreads) sq[c] = sq_bb[base + c];
+}
+
 // What the search found for one kept query.
 struct Kept {
   int q;         // its query slot in the bin
@@ -135,27 +169,12 @@ __device__ __forceinline__ void search_bin(
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  // The bin's slots [base, base + n) into bin and sq, by the whole block.
-  auto stage = [&](int base, int n) {
-    for (int i = threadIdx.x; i < n * 8; i += kThreads) {
-      const int c = i >> 3, k = i & 7;
-      bf16_split(rows_b[(base + c) * ld_b + k], bin[c * 16 + k], bin[c * 16 + 8 + k]);
-    }
-    for (int c = threadIdx.x; c < n; c += kThreads) sq[c] = sq_bb[base + c];
-  };
+  auto stage = [&](int base, int n) { stage_slots(rows_b, ld_b, sq_bb, base, n, bin, sq); };
 
   // ---- The bin's last live slot.
-  if (threadIdx.x == 0) last_live = -1;
   if (threadIdx.x < 64) g[threadIdx.x] = G[threadIdx.x];
   if (threadIdx.x < 8) off[threadIdx.x] = __fsub_rn(b_row[threadIdx.x], rep[threadIdx.x]);
-  int my_last = -1;
-  for (int c = threadIdx.x; c < cb; c += kThreads) {
-    if (sq_bb[c] < inf()) my_last = c;  // false for +inf and NaN
-  }
-  __syncthreads();  // last_live = -1 is visible
-  if (my_last >= 0) atomicMax(&last_live, my_last);
-  __syncthreads();
-  const int n_live = last_live + 1;
+  const int n_live = live_slots(sq_bb, cb, last_live);
   const bool one_tile = n_live <= t.bt;
   if (one_tile) stage(0, n_live);
 

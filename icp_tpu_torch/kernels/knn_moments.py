@@ -94,15 +94,15 @@ def rep_top2_counts(p3: torch.Tensor, reps: torch.Tensor):
     m, n_r = p3.shape[0], reps.shape[0]
     native.require(p3, "p3", (m, 3), torch.float32, dev)
     native.require(reps, "reps", (n_r, 3), torch.float32, dev)
-    srow = lane_dot(reps, reps).contiguous()
+    if n_r == 0:
+        raise ValueError("rep_top2_counts: no representatives")
     i1 = torch.empty((m,), dtype=torch.int32, device=dev)
     i2 = torch.empty((m,), dtype=torch.int32, device=dev)
     counts = torch.zeros((2, n_r), dtype=torch.int32, device=dev)
     lib = native.load_library()
     native.check(lib.icp_rep_top2_counts(
-        p3.data_ptr(), reps.data_ptr(), srow.data_ptr(), m, n_r, i1.data_ptr(),
-        i2.data_ptr(), counts.data_ptr(), native.stream_ptr(dev)),
-        "icp_rep_top2_counts")
+        p3.data_ptr(), reps.data_ptr(), m, n_r, i1.data_ptr(), i2.data_ptr(),
+        counts.data_ptr(), native.stream_ptr(dev)), "icp_rep_top2_counts")
     rep_top2_counts.launches += 1
     return i1, i2, counts
 

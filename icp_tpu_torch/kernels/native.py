@@ -66,8 +66,8 @@ SIGNATURES = {
     # qw, db, sq_db, ms (9 scratch), kappa, floor, m, n, idx, score,
     # rescored (or null), stream
     "icp_brute_nn": [_P, _P, _P, _P, _F, _F, _I, _I, _P, _P, _P, _P],
-    # p3, reps, srow, m, n_r, i1, i2, counts, stream
-    "icp_rep_top2_counts": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
+    # p3, reps, m, n_r, i1, i2, counts, stream
+    "icp_rep_top2_counts": [_P, _P, _I, _I, _P, _P, _P, _P],
     # qp, ld_q, bins, reps, bvalid, n_r, cq, cb, k, out (7, n_r, cq), stream
     "icp_bin_knn_moments": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
 }

@@ -1,6 +1,7 @@
 """Adversarial inputs of K8 (``icp_tpu_torch.kernels.knn_moments``) for the
-checks of its exact k-th-value select, made in numpy from a seed. The CPU
-tests, the card's tests and ``chip_smoke.py`` share them.
+checks of its exact k-th-value select, and K9's top-2 sets (:func:`top2`),
+made in numpy from a seed. The CPU tests, the card's tests and
+``chip_smoke.py`` share them.
 
 Every set is ``(qp, bins, reps, bvalid, k)``: (n_r, cq, 3) raw queries,
 (n_r, cb, 3) raw candidates (NaN for invalid points), (n_r, 3)
@@ -87,4 +88,47 @@ def adversarial(name: str, seed: int = 0):
         return qp, bins, reps, bvalid, 16
     if name == "wide":
         return (*_gauss(rng, 4, 64, 1024), 16)
+    raise ValueError(name)
+
+
+TOP2 = ("normal", "ties", "split", "split wide")
+
+
+def top2(name: str):
+    """One of K9's (p (m, 3), reps (n_r, 3)) float32 sets:
+
+    - "normal": the reference test's data (tests/test_knn_normals.py), 2048
+      Gaussian points at 100 mm and 64 of them as reps;
+    - "ties": integer points and reps (exact scores, many equal ones),
+      three equal reps, three reps far out and four zero (invalid) points;
+    - "split" (4096 points) and "split wide" (65536, where the kernel takes
+      8 points a thread, not 4): integer points against 600 integer reps
+      (three 256-rep chunks, the last one short), where reps r, r + 32 and
+      r + 300 (r < 32) are one point, as are reps 100 + j and 520 + j
+      (j < 20). In the kernel's layout (32 reps a warp and chunk) each
+      copy lies in another warp or chunk, so exact ties meet only in the
+      merge of the warps' lists. Points sit on the copied reps (their i1
+      and i2 tie exactly), and four are zero.
+    """
+    g = np.random.default_rng(0)
+    if name in ("split", "split wide"):
+        m = 65536 if name == "split wide" else 4096
+        p = g.integers(-12, 13, size=(m, 3)).astype(np.float32)
+        reps = g.integers(-12, 13, size=(600, 3)).astype(np.float32)
+        reps[32:64] = reps[300:332] = reps[:32]
+        reps[520:540] = reps[100:120]
+        on = np.concatenate([np.arange(32), np.arange(100, 120)])
+        p[4:4 + 8 * on.size] = np.repeat(reps[on], 8, axis=0)
+        p[:4] = 0.0
+        return p, reps
+    if name == "normal":
+        p = (g.normal(size=(2048, 3)) * 100).astype(np.float32)
+        return p, p[g.choice(2048, 64, replace=False)]
+    if name == "ties":
+        p = g.integers(-4, 5, size=(1024, 3)).astype(np.float32)
+        reps = g.integers(-3, 4, size=(16, 3)).astype(np.float32)
+        reps[5] = reps[11] = reps[2]
+        reps[[0, 7, 13]] = [[10, 0, 0], [0, 10, 0], [0, 0, 10]]
+        p[:4] = 0.0
+        return p, reps
     raise ValueError(name)

@@ -2,7 +2,8 @@
 """Where the time goes: icp_tpu_torch registrations under torch.profiler on
 one NVIDIA GPU.
 
-    python3 profile_port.py [--out build/profile.json] [--gate16x | --knn-tables]
+    python3 profile_port.py [--out build/profile.json]
+                            [--gate16x | --knn-tables | --search-kernels]
 
 For each cell, ``register`` runs twice to warm up, then once with
 ``max_iterations=8`` and thresholds 0 under ``torch.profiler`` (CPU and CUDA
@@ -22,7 +23,11 @@ the grouping's table gather at the flagship and 16x layouts (d 8 and 11:
 K2 through the order, or, in a tree whose ``bin_table`` takes no order,
 torch.cat and index_select then K2), K2 alone on the sorted rows, and the
 whole ``group_rows_by_bin``;
-copy the script into an unpacked parent tree to A/B it. Needs a GPU; there
+with ``--search-kernels`` it times K9 on the estimator's arguments at
+262144 and 16384 points, and K5 on the unfused step's at the flagship (V 8),
+on the rendered PLANE pair (V 12) and over 16 bins (cq 1536, cb 2048),
+and K3 and K7, which share K5's bin staging, on the fused steps' arguments.
+Copy the script into an unpacked parent tree to A/B it. Needs a GPU; there
 is no CPU fallback.
 """
 
@@ -173,6 +178,68 @@ def _knn_tables(dev, rounds: int = 3) -> dict:
     return out
 
 
+def _search_kernels(dev, rounds: int = 3) -> dict:
+    """Device ms (CUDA events, the least of ``rounds``) of K9 on the
+    arguments the estimator hands it at 262144 and 16384 points, and of K5
+    on those the unfused step hands it: the flagship pair (V 8), the
+    rendered PLANE pair (V 12) and the flagship pair over 16 bins; then of
+    K3 and K7 (plane), which share K5's bin staging, on what the fused steps
+    hand them: K3 on the flagship pair over 256 and 16 bins, K7 on the
+    rendered PLANE pair and the LiDAR PLANE step (262144 x 2048)."""
+    from chip_smoke import ALPHA, _capture, _cuda_ms, _rendered_pair
+    from icp_tpu_torch import ICPConfig, ICPParams, Objective, icp_step
+    from icp_tpu_torch.icp.run import build_index
+    from icp_tpu_torch.icp.state import identity_state
+    from icp_tpu_torch.kernels import bin_search as bs
+    from icp_tpu_torch.kernels import knn_moments as km
+    from icp_tpu_torch.ops import normals as nm
+    from icp_tpu_torch.rbc import search as search_mod
+    from icp_tpu_torch.sensors.synthetic import synthetic_pair, wavy_surface_pair
+
+    def least(fn, reps=20):
+        return min(_cuda_ms(fn, reps) for _ in range(rounds))
+
+    out = {}
+    for m in (262144, 16384):
+        cloud = torch.from_numpy(wavy_surface_pair(m)[0]).to(dev)
+        a, _ = _capture(nm, "rep_top2_counts", lambda: nm.knn_normals_rbc(cloud))
+        out[f"K9 at {m} points x {a[1].shape[0]} reps"] = least(
+            lambda: km.rep_top2_counts(*a))
+
+    params = ICPParams(alpha=ALPHA).to(dev)
+    st0 = identity_state(torch.float32, dev)
+    fixed, moving = (torch.from_numpy(x).to(dev) for x in synthetic_pair(16384, seed=0))
+    la, lb, _ = _rendered_pair()
+    fa, lb = la.to(dev), lb.to(dev)
+    cfg_p = ICPConfig(objective=Objective.PLANE, estimate_scale=False, fused_gn=False)
+    cases = {"flagship V 8": (fixed, moving, ICPConfig(fused_point=False)),
+             "rendered PLANE V 12": (fa, lb, cfg_p),
+             "n_r 16 V 8": (fixed, moving, ICPConfig(n_r=16, fused_point=False))}
+    for name, (f, mv, cfg) in cases.items():
+        index = build_index(f, params, cfg)
+        a, _ = _capture(search_mod, "bin_search",
+                        lambda: icp_step(st0, mv, index, params, cfg))
+        out[f"K5 {name} {tuple(a[0].shape)} x {tuple(a[1].shape)}"] = least(
+            lambda: bs.bin_search(*a))
+    # K3 and K7 share K5's bin staging (csrc/bin_search_phase.cuh).
+    wf, wm = (torch.from_numpy(x).to(dev) for x in wavy_surface_pair(262144)[:2])
+    cfg_l = ICPConfig(m=262144, n_r=2048, estimate_scale=False, objective=Objective.PLANE,
+                      normal_mode="knn")
+    cases = {"K3 flagship": (fixed, moving, ICPConfig(), "bin_point_moments"),
+             "K3 n_r 16": (fixed, moving, ICPConfig(n_r=16), "bin_point_moments"),
+             "K7 plane rendered": (fa, lb, dataclasses.replace(cfg_p, fused_gn=True),
+                                   "bin_gn_moments"),
+             "K7 plane 16x": (wf, wm, cfg_l, "bin_gn_moments")}
+    for name, (f, mv, cfg, kernel) in cases.items():
+        index = build_index(f, params, cfg)
+        a, kw = _capture(search_mod, kernel, lambda: icp_step(st0, mv, index, params, cfg))
+        fn = getattr(search_mod, kernel)
+        out[f"{name} {tuple(a[0].shape)}"] = least(lambda: fn(*a, **kw))
+    for key, ms in out.items():
+        print(f"{key}: {ms} ms", flush=True)
+    return out
+
+
 def _cells(dev) -> dict:
     """Each cell's profile of 8 steps, and the estimator's of one call."""
     from chip_smoke import ALPHA, _rendered_pair
@@ -222,6 +289,8 @@ def main() -> None:
                         help="only the 16x POINT gate to convergence, K3 against its twin")
     parser.add_argument("--knn-tables", action="store_true",
                         help="only K8, the estimator and the table gather, timed")
+    parser.add_argument("--search-kernels", action="store_true",
+                        help="only K9 and K5 on the main path's arguments, timed")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_port: torch.cuda.is_available() is False; "
@@ -235,6 +304,8 @@ def main() -> None:
         results["gate16x"] = _gate16x(dev)
     elif args.knn_tables:
         results["knn_tables"] = _knn_tables(dev)
+    elif args.search_kernels:
+        results["search_kernels"] = _search_kernels(dev)
     else:
         results["cells"] = _cells(dev)
     out = Path(args.out)

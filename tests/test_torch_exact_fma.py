@@ -1,12 +1,14 @@
-"""Why the K1 and K3 kernels may score with fused multiply-adds and skip the
-dead slots of a bin, checked on the plain twins on the CPU.
+"""Why the K1, K3 and K9 kernels may score with fused multiply-adds and K3
+may skip the dead slots of a bin, checked on the plain twins on the CPU.
 
 - Every product of a bf16x3 score (hi.hi, hi.lo, lo.hi) is exact in
   float32, so an FMA chain (one rounding per lane, ``dot3_8_fma`` in
   ``icp_tpu_torch/csrc/common.cuh``) equals the twin's separate multiply
   and add (``fused_step.dot3``) bit for bit. The chain is emulated in
   float64: a step rounds ``float64(acc) + float64(a) * float64(b)`` once to
-  float32, the single rounding of an FMA for these operands.
+  float32, the single rounding of an FMA for these operands. K9 scores raw,
+  uncentred 3-D points (z ~ 1500 mm at the LiDAR shape) against Morton
+  representatives: its 3-lane chains are held on those operands too.
 - Cutting each bin at its last live ``sq_b_masked`` slot and dropping the
   query slots with ``qvalid == 0`` (what K3 searches) leaves each kept
   slot's best score and slot bitwise, and P as it was.
@@ -24,7 +26,9 @@ from icp_tpu_torch.icp.run import build_index
 from icp_tpu_torch.icp.state import identity_state
 from icp_tpu_torch.kernels import fused_step as fs
 from icp_tpu_torch.ops.distance import metric_weights
+from icp_tpu_torch.ops.normals import _morton_order
 from icp_tpu_torch.rbc.grouping import group_rows_by_bin
+from icp_tpu_torch.sensors import knn_sets
 from icp_tpu_torch.sensors.synthetic import synthetic_pair, wavy_surface_pair
 
 ALPHA = 2e2  # the benchmark's blend
@@ -61,7 +65,11 @@ def _first_iteration(name):
 
 @pytest.fixture(scope="module")
 def cases():
-    return {name: _first_iteration(name) for name in ("flagship", "wavy4096", "edge")}
+    return ({name: _first_iteration(name) for name in ("flagship", "wavy4096", "edge")}
+            | {name: _k9_case(name) for name in K9_CASES})
+
+
+K9_CASES = ("lidar", "16384", "normal", "ties")
 
 
 def _halves(x):
@@ -74,6 +82,32 @@ def _k1_operands(case):
     return moving8[:, None, :], C.T[None, :, :]
 
 
+def _k9_case(name):
+    """K9's (p, reps): raw wavy-surface points against their Morton reps, as
+    the estimator picks them, at the LiDAR shape (every 256th of the 262144
+    points against all 2048 reps) and the GICP "knn_rbc" cell's 16384
+    points (128 reps); or the "normal" and "ties" sets of
+    ``sensors.knn_sets.top2``."""
+    if name in knn_sets.TOP2:
+        return tuple(torch.from_numpy(x) for x in knn_sets.top2(name))
+    m, n_r, step = {"lidar": (262144, 2048, 256), "16384": (16384, 128, 1)}[name]
+    p = torch.from_numpy(wavy_surface_pair(m)[0][:, :3].copy())
+    stride = m // n_r
+    reps = p[_morton_order(p)[stride // 2::stride][:n_r].long()]
+    return p[::step].contiguous(), reps
+
+
+def _k9_operands(case):
+    p, reps = case
+    return p[:, None, :], reps[None, :, :]
+
+
+def _operands(cases, name, kernel):
+    if kernel == "K9":
+        return _k9_operands(cases[name])
+    return (_k1_operands if kernel == "K1" else _k3_operands)(cases[name])
+
+
 def _k3_operands(case):
     _, (mg, qvalid, reps, bins_c, sq_b, G, b_row, alpha) = case
     qc = fs.search_ref(mg, qvalid, reps, bins_c, sq_b, G, b_row, alpha)[0]
@@ -82,16 +116,17 @@ def _k3_operands(case):
 
 
 @pytest.mark.parametrize("name, kernel", [("flagship", "K1"), ("wavy4096", "K1"),
-                                          ("flagship", "K3")])
+                                          ("flagship", "K3")]
+                         + [(name, "K9") for name in K9_CASES])
 def test_bf16_part_products_are_exact(cases, name, kernel):
     """hi.hi, hi.lo and lo.hi products of the score operands: the float32
     product equals the float64 product on every (query, candidate, lane)."""
-    a, b = (_k1_operands if kernel == "K1" else _k3_operands)(cases[name])
+    a, b = _operands(cases, name, kernel)
     a_hi, a_lo = _halves(a)
     b_hi, b_lo = _halves(b)
     nonzero = 0
     for x, y in ((a_hi, b_hi), (a_hi, b_lo), (a_lo, b_hi)):
-        for k in range(8):
+        for k in range(a.shape[-1]):
             p32 = x[..., k] * y[..., k]
             p64 = x[..., k].double() * y[..., k].double()
             assert torch.equal(p32.double(), p64), (kernel, name, k)
@@ -100,10 +135,10 @@ def test_bf16_part_products_are_exact(cases, name, kernel):
 
 
 def _fma_chain(x, y):
-    """One float32 multiply, then seven FMAs in lane order, each emulated as
-    one rounding of the float64 value."""
+    """One float32 multiply, then an FMA a lane in lane order (seven over 8
+    lanes, two over 3), each emulated as one rounding of the float64 value."""
     acc = (x[..., 0].double() * y[..., 0].double()).float()
-    for k in range(1, 8):
+    for k in range(1, x.shape[-1]):
         acc = (acc.double() + x[..., k].double() * y[..., k].double()).float()
     return acc
 
@@ -119,15 +154,19 @@ def _bits(x):
 
 
 @pytest.mark.parametrize("name, kernel", [("flagship", "K1"), ("wavy4096", "K1"),
-                                          ("flagship", "K3"), ("edge", "K3")])
+                                          ("flagship", "K3"), ("edge", "K3")]
+                         + [(name, "K9") for name in K9_CASES])
 def test_fma_chain_equals_the_twin_bitwise(cases, name, kernel):
-    """dot3_8_fma's chain and score_fma's single rounding give the twin's
-    dot3 and score bit for bit (and so the same first minimum)."""
+    """dot3_8_fma's chain (K9: a 3-lane chain of one multiply and two FMAs)
+    and score_fma's single rounding give the twin's dot3 and score bit for
+    bit (and so the same first minimum)."""
+    a, b = _operands(cases, name, kernel)
     if kernel == "K1":
-        a, b = _k1_operands(cases[name])
         s = cases[name][0][2]
+    elif kernel == "K9":
+        reps = cases[name][1]
+        s = fs.lane_dot(reps, reps)[None, :]  # srow = |r|^2, as the wrapper makes it
     else:
-        a, b = _k3_operands(cases[name])
         s = cases[name][1][4][:, None, :]
     cross_twin = fs.dot3(a, b)
     cross_fma = _dot3_fma(a, b)

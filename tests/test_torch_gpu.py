@@ -15,6 +15,8 @@ from icp_tpu_torch.sensors.synthetic import synthetic_pair
 from icp_tpu_torch.sensors.brute_sets import ADVERSARIAL, adversarial
 from icp_tpu_torch.sensors.knn_sets import ADVERSARIAL as KNN_ADVERSARIAL
 from icp_tpu_torch.sensors.knn_sets import adversarial as knn_adversarial
+from icp_tpu_torch.sensors.knn_sets import TOP2, top2
+from icp_tpu_torch.sensors.search_sets import all_equal as search_all_equal
 
 pytestmark = pytest.mark.cuda
 
@@ -307,7 +309,9 @@ def test_rep_assign_kernel_matches_twin_and_k1(flagship):
 
 def _search_tensors(dev, n_r, cq, cb, v, seed=0):
     """Weighted rep-centered queries and bins at bin-like magnitudes, ~30 %
-    masked slots, bin 1 empty (every slot +inf), and a V-wide payload."""
+    masked slots (+inf holes inside the bins), bin 1 empty (every slot
+    +inf), bin 0 dead past a third of its slots (the kernel's live cut), and
+    a V-wide payload."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     w8 = torch.tensor([1, 1, 1, 0, 200, 200, 200, 0], dtype=torch.float32)
     qc = torch.randn(n_r, cq, 8, generator=g) * torch.tensor([40, 40, 40, 0, .3, .3, .3, 1])
@@ -315,17 +319,22 @@ def _search_tensors(dev, n_r, cq, cb, v, seed=0):
     sq_b = torch.sum(bins_c * w8 * bins_c, dim=-1)
     sq_b[torch.rand(n_r, cb, generator=g) < 0.3] = float("inf")
     sq_b[1] = float("inf")
+    sq_b[0, cb // 3:] = float("inf")
     vals = torch.randn(n_r, cb, v, generator=g) * 1000
     return tuple(x.contiguous().to(dev) for x in (qc * w8, bins_c, sq_b, vals))
 
 
 @pytest.mark.parametrize("n_r, cq, cb, v", [(256, 96, 128, 8), (256, 96, 128, 12),
+                                            (32, 768, 1024, 8), (32, 768, 1024, 12),
                                             (16, 1536, 2048, 8), (16, 1536, 2048, 12),
-                                            (3, 200, 700, 8)])
+                                            (8, 3072, 4096, 8), (8, 3072, 4096, 12),
+                                            (3, 200, 700, 8), (5, 33, 9, 3)])
 def test_bin_search_kernel_bitwise(cuda_dev, n_r, cq, cb, v):
     """K5 against its twin: the same scores and payloads bitwise, from the
-    flagship capacities (cq 96, cb 128) to m 16384 over 16 bins (cb 2048,
-    several shared-memory tiles per bin) and capacities off any tile size."""
+    flagship capacities (cq 96, cb 128) to m 16384 over 32, 16 and 8 bins
+    (cb up to 4096: several staged tiles per bin, without the
+    large-shared-memory opt-in) and capacities off any tile size, with V 3
+    taking the scalar payload copy."""
     from icp_tpu_torch.kernels import bin_search as bs
 
     args = _search_tensors(cuda_dev, n_r, cq, cb, v)
@@ -337,6 +346,28 @@ def test_bin_search_kernel_bitwise(cuda_dev, n_r, cq, cb, v):
     assert torch.equal(best.view(torch.int32), best_t.view(torch.int32))
     assert torch.equal(matched.view(torch.int32), matched_t.view(torch.int32))
     assert torch.isinf(best[1]).all() and torch.isfinite(matched).all()
+
+
+@pytest.mark.parametrize("n_r, cq, cb, v", [(256, 96, 128, 8), (256, 96, 128, 12),
+                                            (16, 1536, 2048, 8), (8, 3072, 4096, 12)])
+def test_bin_search_kernel_all_equal_slots(cuda_dev, n_r, cq, cb, v):
+    """K5 on bins whose live slots all hold one point (sensors/search_sets.py):
+    every warp's partial minimum ties, within one staged tile (cb 128, three
+    query slots a thread) and over several (cb 2048 and 4096, one a thread),
+    and the (score, slot) merge must give the first live slot, bitwise the
+    twin."""
+    from icp_tpu_torch.kernels import bin_search as bs
+
+    args = tuple(torch.from_numpy(x).to(cuda_dev) for x in search_all_equal(n_r, cq, cb, v))
+    best, matched = bs.bin_search(*args)
+    best_t, matched_t = bs.bin_search_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(best.view(torch.int32), best_t.view(torch.int32))
+    assert torch.equal(matched.view(torch.int32), matched_t.view(torch.int32))
+    live = torch.isfinite(args[2])
+    first = torch.where(live.any(dim=1), live.int().argmax(dim=1), 0)
+    want = args[3][torch.arange(n_r, device=cuda_dev), first]
+    assert torch.equal(matched, want[:, None, :].expand(-1, cq, -1))
 
 
 def test_bin_search_kernel_on_unfused_flagship_tables(flagship):
@@ -431,40 +462,14 @@ def test_unfused_register_on_card_matches_cpu(rendered, d):
 # ---- slice 5: K9 and K8, the kNN normals of unorganized clouds --------------
 
 
-def _top2_agreement(p, reps, got, want):
-    """(ids that differ, worst float64 excess of a differing pick relative to
-    the score's magnitude): the near-tie rule on the raw score
-    |r|^2 - 2 p.r."""
-    r64 = reps.double()
-    s64 = torch.sum(r64 * r64, dim=1)[None, :] - 2.0 * (p.double() @ r64.T)
-    n_diff, worst = 0, 0.0
-    for g, w in zip(got[:2], want[:2]):
-        diff = g != w
-        n_diff += int(diff.sum())
-        if bool(diff.any()):
-            rows = torch.nonzero(diff)[:, 0]
-            a = s64[rows, g[rows].long()]
-            b = s64[rows, w[rows].long()]
-            worst = max(worst, float(((a - b).abs() / b.abs().clamp(min=1.0)).max()))
-    return n_diff, worst
-
-
 def _top2_case(name, dev):
     from icp_tpu_torch.ops.normals import _morton_order
     from icp_tpu_torch.sensors.synthetic import wavy_surface_pair
 
-    g = np.random.default_rng(0)
-    if name == "normal":
-        p = (g.normal(size=(2048, 3)) * 100).astype(np.float32)
-        reps = p[g.choice(2048, 64, replace=False)]
-    elif name == "ties":
-        p = g.integers(-4, 5, size=(1024, 3)).astype(np.float32)
-        reps = g.integers(-3, 4, size=(16, 3)).astype(np.float32)
-        reps[5] = reps[11] = reps[2]
-        reps[[0, 7, 13]] = [[10, 0, 0], [0, 10, 0], [0, 0, 10]]
-        p[:4] = 0.0
+    if name in TOP2:
+        p, reps = top2(name)
     else:
-        m, n_r = {"wavy": (4096, 64), "lidar": (262144, 2048)}[name]
+        m, n_r = {"wavy": (4096, 64), "16384": (16384, 128), "lidar": (262144, 2048)}[name]
         p = wavy_surface_pair(m)[0][:, :3].copy()
         stride = m // n_r
         order = _morton_order(torch.from_numpy(p)).numpy()
@@ -472,11 +477,15 @@ def _top2_case(name, dev):
     return torch.from_numpy(p).to(dev), torch.from_numpy(np.ascontiguousarray(reps)).to(dev)
 
 
-@pytest.mark.parametrize("name", ["normal", "ties", "wavy", "lidar"])
+@pytest.mark.parametrize("name", ["normal", "ties", "split", "split wide", "wavy", "16384",
+                                  "lidar"])
 def test_rep_top2_counts_kernel_matches_twin(cuda_dev, name):
     """K9 against its twin from the reference test's data to the LiDAR shape
-    (262144 raw points, 2048 Morton reps): counts exact and equal to the
-    bincounts of the kernel's own ids; ids equal, or a float64 near-tie."""
+    (262144 raw points, 2048 Morton reps) and the GICP "knn_rbc" cell's
+    16384 points (128 reps), and on the "split" sets, whose exact ties lie
+    in different warps and chunks (4 and 8 points a thread): i1, i2 and the
+    counts equal the twin's, and the counts are the bincounts of the
+    kernel's own ids."""
     from icp_tpu_torch.kernels import knn_moments as km
 
     p, reps = _top2_case(name, cuda_dev)
@@ -488,10 +497,8 @@ def test_rep_top2_counts_kernel_matches_twin(cuda_dev, name):
     n_r = reps.shape[0]
     for j in range(2):
         assert torch.equal(got[2][j], torch.bincount(got[j], minlength=n_r).to(torch.int32))
-    n_diff, worst = _top2_agreement(p, reps, got, want)
-    assert n_diff <= 0.001 * 2 * p.shape[0] and worst <= 1e-5
-    if name == "ties":  # exact scores: the same ids bitwise
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def _knn_moment_tensors(dev, seed=0):
@@ -894,24 +901,27 @@ def test_bin_gn_moments_kernel_at_step_shapes(gn_cases, shape, mode):
             assert torch.equal(g, r)
 
 
-@pytest.mark.parametrize("case", ["brute_point", "plane", "gicp"])
+@pytest.mark.parametrize("case", ["brute_point", "plane", "gicp", "unfused_point",
+                                  "unfused_plane"])
 def test_step_chunk_reads_nothing_back(cuda_dev, rendered, case):
-    """One 8-step chunk of icp_run (BRUTE POINT with K6 and its margin on the
-    flagship pair; the fused PLANE and GICP steps with K7 on the rendered
-    pair) makes no call that waits for the stream: torch's sync debug mode
-    raises on one. A first chunk builds the kernels."""
+    """One 8-step chunk of icp_run (BRUTE POINT with K6 and its margin and
+    the unfused RBC POINT step with K5 on the flagship pair; the fused PLANE
+    and GICP steps with K7 and the unfused PLANE step with K5 on the
+    rendered pair) makes no call that waits for the stream: torch's sync
+    debug mode raises on one. A first chunk builds the kernels."""
     from icp_tpu_torch import Correspondence, ICPConfig, ICPParams, Objective, icp_step
     from icp_tpu_torch.icp.run import CHUNK, _select, build_target, converged
     from icp_tpu_torch.icp.state import identity_state
     from icp_tpu_torch.ops.normals import normals_for
 
-    if case == "brute_point":
+    if case in ("brute_point", "unfused_point"):
         fixed, moving = (torch.from_numpy(a).to(cuda_dev) for a in synthetic_pair(M))
-        cfg = ICPConfig(correspondence=Correspondence.BRUTE)
+        cfg = (ICPConfig(correspondence=Correspondence.BRUTE) if case == "brute_point"
+               else ICPConfig(fused_point=False))
     else:
         fixed, moving = rendered["fixed_d"], rendered["moving_d"]
-        cfg = ICPConfig(objective=Objective.PLANE if case == "plane" else Objective.GICP,
-                        estimate_scale=False)
+        cfg = ICPConfig(objective=Objective.GICP if case == "gicp" else Objective.PLANE,
+                        estimate_scale=False, fused_gn=case != "unfused_plane")
     params = ICPParams(alpha=2e2).to(cuda_dev)
     target = build_target(fixed, params, cfg)
     mn = normals_for(moving, cfg.normal_mode) if case == "gicp" else None

@@ -31,9 +31,13 @@ landmarks made by icp_tpu_torch.sensors:
 
 2b. K4, K7 (plane, plane_sym, gicp) and K3 with Huber and TRIMMED weights
     against their twins on the first iteration's tensors (m=16384, n_r=256,
-    cq 96, cb 128): K4 the same +inf slots and finite values within 1e-6 of
-    the largest; K7's P and P_z and K3's P within 1e-4 of max|P|, each
-    repeating bitwise.
+    cq 96, cb 128): K4 bitwise (the same +inf slots, every finite d2 the
+    twin's bits) there (lanes 0:8 of the 11-wide rows), on what
+    robust-adaptive POINT and symmetric-PLANE steps hand it on the rendered
+    pair, on what robust-adaptive POINT steps of the flagship pair hand it at
+    n_r 32, 16 and 8 (cb up to 4096) and on the all-equal bins of
+    sensors/search_sets.py; K7's P and P_z and K3's P within 1e-4 of
+    max|P|, each repeating bitwise.
 3b. The four bench gates (plane, plane_sym, robust with 12 % gross outliers
     made as bench.py makes them, gicp) registered on CUDA tensors, each
     within t_err < 1.0 mm and a_err < 0.05 deg, with K1, K2, K7 (and K4 for
@@ -118,6 +122,23 @@ bin_knn_moments) adds, on the reference's wavy-surface pairs
     marginal ms per iteration of the LiDAR PLANE registration and the 4x /
     16x POINT cells.
 
+Slice 6 (the batch, the pyramid and the app pipelines) adds, at the
+flagship width (m 16384, n_r 256):
+
+3e. register_batch of B 4 POINT pairs (synthetic_pair seeds 0-3), B 2
+    BRUTE POINT pairs and B 2 PLANE rendered pairs, each lane's k, q, t and
+    s torch.equal to register of its pair on the card, each lane within
+    its gate (POINT 0.05 mm / 0.005 deg, PLANE 1.0 mm / 0.05 deg), with the
+    batch's wall per pair beside register's; register_pyramid (strides 4,
+    2, 1) on the reference test's large-motion rendered pair (0.02 rad
+    about y, t = (60, -30, 40) mm) within 10 mm and 0.3 deg and no more
+    than 1 mm worse than one level, K1 and K3 launched at n_r 16, 64 and
+    256; ICPRegistration.register_clouds on the 640x480 rendered pair
+    within the reference test's bounds (1 <= k <= 40, |t| < 50 mm, angle
+    < 2 deg); ICPStepByStep's two steps (k 1, then 2), its transformed
+    cloud (307200, 8) with the colour half untouched, and reset; POINT +
+    HUBER + adaptive at n_r 8 (K4 at cb 4096) within 1.0 mm and 0.05 deg.
+
 The line before the last is {"kernels": [...]}: per kernel its launches on
 the main path, its largest error against the twin over every shape checked
 (and, for K1, K1′, K2, K3 and K7, max_abs_err_16x at the 16x shape apart), its
@@ -138,7 +159,8 @@ candidate, 40 per neighbour, 100 per query); bound_ms_pr4 is the count of its
 first design (60 a query-slot pair: the d2, 18 counting passes, the
 membership), kept to compare with older records; K8 adds ms_16384,
 plain_ms_16384 and both bounds there, K9 ms_16384, plain_ms_16384 and
-bound_ms_16384. K5 adds bound_ms_padded (every padded slot pair and every
+bound_ms_16384, K4 ms_n_r8, plain_ms_n_r8 and bound_ms_n_r8 on what the
+robust-adaptive POINT step hands it at n_r 8 (cq 3072, cb 4096). K5 adds bound_ms_padded (every padded slot pair and every
 byte of its inputs, its count before its live-slot design) and its time, the twin's and both bounds at
 n_r 16 (ms_n_r16, plain_ms_n_r16, bound_ms_n_r16, bound_ms_padded_n_r16).
 library_ms is null, since
@@ -169,6 +191,10 @@ ROUNDS = 5
 # beside the port's, not targets.
 Q_GT_R = np.array([0.0, np.sin(0.004), 0.0, np.cos(0.004)])
 T_GT_R = np.array([10.0, -6.0, 8.0])
+# A second rendered pair for the PLANE batch: pose C, 0.006 rad about z and
+# t = (-6, 5, 9) mm, is its ground truth.
+Q_GT_C = np.array([0.0, 0.0, np.sin(0.003), np.cos(0.003)])
+T_GT_C = np.array([-6.0, 5.0, 9.0])
 REFERENCE_GATES = {"plane": (0.306, 0.0208), "plane_sym": (0.352, 0.0233),
                    "robust": (0.334, 0.0219), "gicp": (0.313, 0.0198)}
 T_GATE, A_GATE = 1.0, 0.05  # bench.py's accuracy gate, mm and deg
@@ -194,6 +220,24 @@ def _errors(state, q_gt=Q_GT, t_gt=T_GT):
     t_err = float(np.linalg.norm(state.t.double().cpu().numpy() - t_gt))
     a_err = float(qangle_deg(qmul(state.q.cpu(), qconj(q_gt))))
     return t_err, a_err
+
+
+def _qmul(a, b):
+    """Hamilton product of [x, y, z, w] quaternions (numpy)."""
+    (x1, y1, z1, w1), (x2, y2, z2, w2) = a, b
+    return np.array([w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+                     w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+                     w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+                     w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2])
+
+
+def _relative(qa, ta, qb, tb):
+    """(q, t) of a^-1 b for camera poses a, b (p_world = R(q) p + t): the
+    transform that takes b's frame into a's, the ground truth of
+    registering b's landmarks onto a's."""
+    qa_inv = np.array([-qa[0], -qa[1], -qa[2], qa[3]])
+    d = np.concatenate([np.asarray(tb, np.float64) - ta, [0.0]])
+    return _qmul(qa_inv, qb), _qmul(_qmul(qa_inv, d), qa)[:3]
 
 
 def _rendered_pair():
@@ -540,7 +584,7 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs an NVIDIA GPU")
     from icp_tpu_torch import (Correspondence, ICPConfig, ICPParams, Objective,
-                               RobustKernel, Weighting, icp_step, register)
+                               RobustKernel, Weighting, icp_step, register, register_batch)
     from icp_tpu_torch.icp.quaternion import qrotate
     from icp_tpu_torch.icp.run import build_index
     from icp_tpu_torch.icp.state import identity_state
@@ -635,18 +679,54 @@ def main() -> None:
     qv = gl.valid.to(torch.float32)
     search = (index_p.reps, index_p.bins_centered, index_p.sq_b_masked, Gp, bp, alpha)
     k4_args = (mg11, qv) + search
-    d2_k = fs.bin_min_dists(*k4_args)
     d2_t = fs.bin_min_dists_ref(*k4_args)
-    torch.cuda.synchronize()
     fin = torch.isfinite(d2_t)
-    if not torch.equal(torch.isfinite(d2_k), fin):
-        raise AssertionError("K4 +inf slots differ from its twin")
-    k4_err, k4_scale = _rel_err(d2_k[fin], d2_t[fin])
-    print(f"K4 bin_min_dists: {int(fin.sum())} finite of {fin.numel()} slots, "
-          f"max|dd2| {k4_err:.4e} vs max d2 {k4_scale:.4e} (ratio "
-          f"{k4_err / k4_scale:.3e}, bound 1e-6)", flush=True)
-    if not k4_err <= 1e-6 * k4_scale:
-        raise AssertionError("K4 disagrees with its twin")
+    # K4 bitwise against its twin (the +inf set and every finite d2): the
+    # first iteration's table above (lanes 0:8 of the 11-wide rows), what
+    # robust-adaptive steps hand it on the rendered pair (POINT; symmetric
+    # PLANE, whose table is 11 wide), what robust-adaptive POINT steps of the
+    # flagship pair hand it at n_r 32, 16 and 8 (cq up to 3072, cb up to
+    # 4096: several query and bin tiles in bounded shared memory), and the
+    # all-equal bins of sensors/search_sets.py (every partial minimum ties).
+    prm_d = params.to(dev)
+
+    def k4_step_args(fixed_t, moving_t, config):
+        return _capture(search_mod, "bin_min_dists", lambda: icp_step(
+            st0, moving_t, build_index(fixed_t, prm_d, config), prm_d, config))[0]
+
+    k4_cases = {
+        "rendered, first iteration (11-wide rows)": k4_args,
+        "rendered, robust-adaptive POINT step": k4_step_args(fa_d, lb_d, ICPConfig(
+            robust=RobustKernel.HUBER, robust_adaptive=True, estimate_scale=False)),
+        "rendered, robust-adaptive plane_sym step (11-wide rows)": k4_step_args(
+            fa_d, dirty_d, ICPConfig(objective=Objective.PLANE, plane_symmetric=True,
+                                     weighting=Weighting.REGULAR,
+                                     robust=RobustKernel.TRIMMED, robust_adaptive=True,
+                                     estimate_scale=False)),
+    }
+    for n_r in (32, 16, 8):
+        k4_cases[f"n_r={n_r}, robust-adaptive POINT step"] = k4_step_args(
+            fixed, moving, ICPConfig(n_r=n_r, robust=RobustKernel.HUBER, robust_adaptive=True))
+    for n_r, cq, cb in ((256, 96, 128), (8, 3072, 4096)):
+        k4_cases[f"all-equal bins n_r={n_r}"] = tuple(
+            torch.from_numpy(x).to(dev) for x in search_sets.min_dists_all_equal(n_r, cq, cb)
+        ) + (ALPHA,)
+    k4_err = 0.0
+    for name, a in k4_cases.items():
+        got, want = fs.bin_min_dists(*a), fs.bin_min_dists_ref(*a)
+        torch.cuda.synchronize()
+        same_inf = torch.equal(torch.isfinite(got), torch.isfinite(want))
+        ok = _bitwise(got, want)
+        k4_err = max(k4_err, _finite_err(got, want))
+        print(f"K4 bin_min_dists {name}: mg {tuple(a[0].shape)} (row stride "
+              f"{a[0].stride(1)}), cb {a[3].shape[1]}; {int(torch.isfinite(want).sum())} "
+              f"finite of {want.numel()} slots; +inf set equal: {same_inf}; bitwise: {ok}",
+              flush=True)
+        if not (same_inf and ok):
+            raise AssertionError(f"K4 {name} differs from its twin")
+    k4_n_r8 = k4_cases["n_r=8, robust-adaptive POINT step"]
+    if k4_n_r8[3].shape[1] != 4096:
+        raise AssertionError(f"K4 at n_r 8: cb {k4_n_r8[3].shape[1]}, expected 4096")
 
     gn_args = {}
     k7_err = 0.0
@@ -675,7 +755,6 @@ def main() -> None:
     # ---- 2c. Slices 3-4: K1′, K5 and K6 against their twins ----------------
     # (K1′ is held against its twin and K1 with K1, in _check_rep_assign.)
 
-    prm_d = params.to(dev)
     cfg_u = ICPConfig(fused_point=False)
     cfg_pu = ICPConfig(objective=Objective.PLANE, estimate_scale=False, fused_gn=False)
     k5_cases = {  # name -> the arguments the unfused step hands K5
@@ -1138,6 +1217,144 @@ def main() -> None:
     if not (same_zero and close >= 0.999):
         raise AssertionError("kNN normals on the card and the CPU disagree")
 
+    # ---- 3e. Slice 6: the batch, the pyramid and the app pipelines --------
+    from icp_tpu_torch.icp.pipeline import ICPRegistration, ICPStepByStep
+    from icp_tpu_torch.icp.pyramid import register_pyramid
+    from icp_tpu_torch.ops.sampling import get_landmarks
+    from icp_tpu_torch.sensors import synthetic
+
+    def check_batch(what, fixed_b, moving_b, config, gts, gate, need):
+        """register_batch of the pairs against register of each pair on the
+        card: k, q, t and s torch.equal; each lane within ``gate`` of its
+        ground truth; the batch's wall per pair beside the singles'."""
+        batch, wall_b, ran = drive_call(
+            lambda: register_batch(fixed_b, moving_b, params, config))
+        n = fixed_b.shape[0]
+        walls, ks = [], [int(k) for k in batch.k]
+        for i in range(n):
+            t0 = time.perf_counter()
+            single = register(fixed_b[i], moving_b[i], params, config)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            same = all(torch.equal(getattr(batch, f)[i], getattr(single, f))
+                       for f in ("k", "q", "t", "s"))
+            t_err, a_err = _errors(single, *gts[i])
+            print(f"register_batch {what} lane {i}: k={ks[i]} t_err={t_err:.6f} mm "
+                  f"a_err={a_err:.7f} deg; k, q, t, s equal to register's: {same}", flush=True)
+            if not same:
+                raise AssertionError(f"register_batch {what} lane {i} differs from register")
+            if not (t_err < gate[0] and a_err < gate[1]):
+                raise AssertionError(f"register_batch {what} lane {i} off the ground truth")
+        print(f"register_batch {what} (B {n}) on {torch.cuda.get_device_name(0)}: wall "
+              f"{wall_b * 1e3 / n} ms per pair, register alone {np.mean(walls) * 1e3} ms per "
+              f"pair; launches={ran}", flush=True)
+        require_launched(ran, need, max(ks), f"register_batch {what}")
+
+    pairs = [_synthetic_pair(M, seed=seed) for seed in range(4)]
+    check_batch("POINT, seeds 0-3", torch.from_numpy(np.stack([p[0] for p in pairs])).to(dev),
+                torch.from_numpy(np.stack([p[1] for p in pairs])).to(dev), cfg,
+                [(Q_GT, T_GT)] * 4, (0.05, 0.005),
+                ("rep_assign_counts", "bin_table", "bin_point_moments"))
+    check_batch("BRUTE POINT, seeds 0-1",
+                torch.from_numpy(np.stack([p[0] for p in pairs[:2]])).to(dev),
+                torch.from_numpy(np.stack([p[1] for p in pairs[:2]])).to(dev), cfg_b,
+                [(Q_GT, T_GT)] * 2, (0.05, 0.005), ("brute_nn",))
+    scene = synthetic.default_scene()
+    lc = get_landmarks(synthetic.render_cloud(scene, synthetic.CameraPose(
+        torch.tensor(Q_GT_C, dtype=torch.float32), torch.tensor(T_GT_C, dtype=torch.float32))
+    ).reshape(-1, 8)).contiguous()
+    check_batch("PLANE, two rendered pairs", torch.stack([fa_d, fa_d]),
+                torch.stack([lb_d, lc.to(dev)]), cfg_p, [(Q_GT_R, T_GT_R), (Q_GT_C, T_GT_C)],
+                (T_GATE, A_GATE), ("rep_assign_counts", "bin_table", "bin_gn_moments"))
+
+    # The pyramid on the reference test's large-motion pair (tests/test_pyramid.py):
+    # K1 and K3 must launch at each level's n_r (16, 64, 256).
+    q_big = np.array([0.0, np.sin(0.01), 0.0, np.cos(0.01)])
+    t_big = np.array([60.0, -30.0, 40.0])
+    lb_big = get_landmarks(synthetic.render_cloud(scene, synthetic.CameraPose(
+        torch.tensor(q_big, dtype=torch.float32), torch.tensor(t_big, dtype=torch.float32))
+    ).reshape(-1, 8)).contiguous().to(dev)
+    q_rel, t_rel = _relative(np.array([0.0, 0.0, 0.0, 1.0]), np.zeros(3), q_big, t_big)
+    cfg_pyr = ICPConfig(estimate_scale=False, max_iterations=40)
+    single, wall_s, _ = drive(fa_d, lb_big, params, cfg_pyr)
+    shapes = {"rep_assign_counts": set(), "bin_point_moments": set()}
+    real = {name: getattr(search_mod, name) for name in shapes}
+
+    def shape_spy(name):
+        def wrapped(*a, **kw):  # K1's C is (8, n_r), K3's mg (n_r, cq, 8)
+            shapes[name].add(a[1].shape[1] if name == "rep_assign_counts" else a[0].shape[0])
+            return real[name](*a, **kw)
+        return wrapped
+
+    for name in shapes:
+        setattr(search_mod, name, shape_spy(name))
+    try:
+        pyr, wall_p, ran = drive_call(lambda: register_pyramid(fa_d, lb_big, params, cfg_pyr,
+                                                               strides=(4, 2, 1)))
+    finally:
+        for name, fn in real.items():
+            setattr(search_mod, name, fn)
+    t_s, a_s = _errors(single, q_rel, t_rel)
+    t_p, a_p = _errors(pyr, q_rel, t_rel)
+    print(f"register_pyramid (4, 2, 1), large motion (0.02 rad, |t| "
+          f"{np.linalg.norm(t_big):.1f} mm) on {torch.cuda.get_device_name(0)}: k={int(pyr.k)} "
+          f"t_err={t_p:.6f} mm a_err={a_p:.7f} deg (bounds 10 mm, 0.3 deg) wall={wall_p:.3f} s; "
+          f"single level k={int(single.k)} t_err={t_s:.6f} mm a_err={a_s:.7f} deg "
+          f"wall={wall_s:.3f} s; n_r launched: {sorted(shapes['rep_assign_counts'])} (K1), "
+          f"{sorted(shapes['bin_point_moments'])} (K3); launches={ran}", flush=True)
+    if not (t_p < 10.0 and a_p < 0.3 and t_p <= t_s + 1.0):
+        raise AssertionError("register_pyramid misses the large-motion gate")
+    for name, seen in shapes.items():
+        if seen != {16, 64, 256}:
+            raise AssertionError(f"register_pyramid: {name} ran at n_r {sorted(seen)}")
+
+    # The app pipelines on the reference test's 640x480 pair (tests/test_pipeline.py).
+    q_app = torch.tensor([0.0, np.sin(0.003), 0.0, np.cos(0.003)], dtype=torch.float32)
+    cloud_a = synthetic.render_cloud(scene, synthetic.CameraPose.identity()).to(dev)
+    cloud_b = synthetic.render_cloud(scene, synthetic.CameraPose(
+        q_app, torch.tensor([8.0, -4.0, 6.0]))).to(dev)
+    cfg_app = ICPConfig(estimate_scale=False)
+    st, wall, ran = drive_call(lambda: ICPRegistration(ICPParams(alpha=ALPHA), cfg_app)
+                               .register_clouds(cloud_a, cloud_b, verbose=True))
+    t_norm, ang = float(torch.linalg.vector_norm(st.t)), float(qangle_deg(st.q.cpu()))
+    print(f"ICPRegistration.register_clouds (640 x 480): k={int(st.k)} |t|={t_norm:.6f} mm "
+          f"angle={ang:.7f} deg (bounds 1 <= k <= 40, 50 mm, 2 deg) wall={wall:.3f} s "
+          f"launches={ran}", flush=True)
+    if not (1 <= int(st.k) <= 40 and t_norm < 50.0 and ang < 2.0):
+        raise AssertionError("ICPRegistration misses the reference test's bounds")
+    require_launched(ran, ("rep_assign_counts", "bin_table", "bin_point_moments"),
+                     int(st.k), "ICPRegistration")
+    # Numpy clouds, as the reference's app takes them: they go to the card.
+    app = ICPStepByStep(cloud_a.cpu().numpy(), cloud_b.cpu().numpy(), ICPParams(alpha=ALPHA),
+                        cfg_app)
+    if app.fixed_cloud.device != cloud_a.device or app.state.q.device != cloud_a.device:
+        raise AssertionError(f"ICPStepByStep put numpy clouds on {app.fixed_cloud.device}")
+    app.build_rbc()
+    (st1, st2), _, ran = drive_call(lambda: (app.step(verbose=True), app.step(verbose=False)))
+    tc = app.transformed_cloud()
+    colour_same = torch.equal(tc[:, 4:], cloud_b.reshape(-1, 8)[:, 4:])
+    app.reset()
+    print(f"ICPStepByStep: k {int(st1.k)} then {int(st2.k)}; transformed cloud "
+          f"{tuple(tc.shape)}, colour half untouched: {colour_same}; k after reset "
+          f"{int(app.state.k)}; launches={ran}", flush=True)
+    if not (int(st1.k) == 1 and int(st2.k) == 2 and tc.shape == (307200, 8) and colour_same
+            and int(app.state.k) == 0):
+        raise AssertionError("ICPStepByStep misses the reference test's checks")
+    require_launched(ran, ("rep_assign_counts", "bin_table", "bin_point_moments"), 2,
+                     "ICPStepByStep")
+
+    # Robust-adaptive POINT at n_r 8: K4 at cb 4096.
+    cfg_r8 = ICPConfig(n_r=8, robust=RobustKernel.HUBER, robust_adaptive=True)
+    st, wall, ran = drive(fixed, moving, params, cfg_r8)
+    t_err, a_err = _errors(st)
+    print(f"POINT + HUBER + adaptive at n_r 8 (cq {cfg_r8.query_capacity}, cb "
+          f"{cfg_r8.bin_capacity}), seed 0: k={int(st.k)} t_err={t_err:.6f} mm "
+          f"a_err={a_err:.7f} deg wall={wall:.3f} s launches={ran}", flush=True)
+    if not (t_err < T_GATE and a_err < A_GATE and cfg_r8.bin_capacity == 4096):
+        raise AssertionError("POINT + HUBER at n_r 8: registration off the ground truth")
+    require_launched(ran, ("bin_point_moments", "bin_min_dists"), int(st.k),
+                     "POINT + HUBER at n_r 8")
+
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"{name} never launched on the main path")
@@ -1257,6 +1474,7 @@ def main() -> None:
         "bin_point_moments": (fs.bin_point_moments, fs.bin_point_moments_ref, k3_args,
                               {"weighted": True}),
         "bin_min_dists": (fs.bin_min_dists, fs.bin_min_dists_ref, k4_args, {}),
+        "bin_min_dists@n_r=8": (fs.bin_min_dists, fs.bin_min_dists_ref, k4_n_r8, {}),
         "brute_nn": (bn.brute_nn, bn.brute_nn_ref, k6_args, {}),
         "rep_top2_counts": (km.rep_top2_counts, km.rep_top2_counts_ref, k9_args, {}),
         "rep_top2_counts@16384": (km.rep_top2_counts, km.rep_top2_counts_ref, k9s_args, {}),
@@ -1285,7 +1503,7 @@ def main() -> None:
     # 262144 x 2048 scores, K8 over 2048 bins): 5 calls per timing, not 20.
     twin_reps = {"brute_nn": 5, "rep_top2_counts": 5, "rep_top2_counts@16384": 5,
                  "bin_knn_moments": 5,
-                 "bin_knn_moments@16384": 5,
+                 "bin_knn_moments@16384": 5, "bin_min_dists@n_r=8": 5,
                  "rep_assign_counts@16x": 5, "bin_point_moments@16x": 5,
                  **{f"bin_gn_moments@16x {mode}": 5 for mode in k7x_modes}}
     times, pr4 = {}, {}
@@ -1349,7 +1567,7 @@ def main() -> None:
             "bin_point_moments": "bin_point_moments@16x",
             "bin_gn_moments": "bin_gn_moments@16x plane"}
     r6 = k6_rescored.double()
-    k8x, k9x = "bin_knn_moments@16384", "rep_top2_counts@16384"
+    k8x, k9x, k4x = "bin_knn_moments@16384", "rep_top2_counts@16384", "bin_min_dists@n_r=8"
     k5x = next(key for key in times if key.startswith("bin_search@"))
     extra = {"brute_nn": {"rescored_mean": float(r6.mean()), "rescored_max": int(r6.max()),
                           "margin_headroom": k6_headroom, "ms_no_rescore": k6_none},
@@ -1359,6 +1577,8 @@ def main() -> None:
                                  "bound_ms_pr4_16384": pr4[k8x][0]},
              "rep_top2_counts": {"ms_16384": times[k9x][0], "plain_ms_16384": times[k9x][1],
                                  "bound_ms_16384": times[k9x][2]},
+             "bin_min_dists": {"ms_n_r8": times[k4x][0], "plain_ms_n_r8": times[k4x][1],
+                               "bound_ms_n_r8": times[k4x][2]},
              "bin_search": {"bound_ms_padded": pr4[slowest["bin_search"]][0],
                             "ms_n_r16": times[k5x][0], "plain_ms_n_r16": times[k5x][1],
                             "bound_ms_n_r16": times[k5x][2],

@@ -11,7 +11,9 @@ PLANE, symmetric PLANE and GICP objectives with grid normals or the kNN
 normals of unorganized clouds (exact, or RBC-accelerated for LiDAR-scale
 sweeps), on the fused and unfused RBC pipelines and on BRUTE
 correspondence, with POWER / SVD / JACOBI rotation, WEIGHTED / REGULAR
-weighting and the robust kernels.
+weighting and the robust kernels; ``register_batch`` for a batch of pairs,
+``icp.pyramid.register_pyramid`` for large motions, and the reference's apps
+(``icp.pipeline.ICPStepByStep``, ``ICPRegistration``).
 
 Geometry runs in full float32: importing the package disables TF32 for
 matrix products and cuDNN, since TF32 shows up as ~0.5% coordinate error and
@@ -35,8 +37,15 @@ from icp_tpu_torch.runtime.config import (  # noqa: E402
 )
 from icp_tpu_torch.icp.state import ICPState, identity_state  # noqa: E402
 from icp_tpu_torch.icp.step import BruteTarget, icp_step  # noqa: E402
-from icp_tpu_torch.icp.run import build_index, build_target, icp_run, register  # noqa: E402
+from icp_tpu_torch.icp.run import (  # noqa: E402
+    build_index,
+    build_target,
+    icp_run,
+    register,
+    register_batch,
+)
 from icp_tpu_torch.rbc.construct import RBCIndex, rbc_construct  # noqa: E402
+from icp_tpu_torch.rbc.search import rbc_search  # noqa: E402
 
 __all__ = [
     "BruteTarget",
@@ -55,5 +64,7 @@ __all__ = [
     "icp_step",
     "identity_state",
     "rbc_construct",
+    "rbc_search",
     "register",
+    "register_batch",
 ]

@@ -1,5 +1,6 @@
-// The per-bin search of K3 (bin_point_moments.cu) and K7 (bin_gn_moments.cu),
-// on live pairs only: one block of kThreads threads per bin. K5
+// The per-bin search of K3 (bin_point_moments.cu), K4 (bin_min_dists.cu) and
+// K7 (bin_gn_moments.cu), on live pairs only: one block of kThreads threads
+// per bin. K5
 // (bin_search.cu) shares its last-live scan (live_slots) and its bin
 // staging (stage_slots).
 //

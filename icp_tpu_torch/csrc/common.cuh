@@ -8,11 +8,10 @@
 // make bit-identical nearest-neighbour decisions. dot3_8_fma reaches the
 // same bits with explicit __fmaf_rn where every product is exact.
 //
-// prep_query is the query preparation of every per-bin search (K3, K4, K7);
-// search below is K4's (bin_min_dists.cu), one query per thread, and
-// bin_search_phase.cuh holds K3's and K7's, on live pairs only. All of them
-// score with dot3_8_fma and score_fma, bit for bit the JAX package's
-// _score_core / _search_core (icp_tpu/kernels/fused_step.py:449-517).
+// prep_query is the query preparation of every per-bin search (K3, K4, K7),
+// which bin_search_phase.cuh holds, on live pairs only. They score with
+// dot3_8_fma and score_fma, bit for bit the JAX package's _score_core /
+// _search_core (icp_tpu/kernels/fused_step.py:449-517).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -78,26 +77,6 @@ __device__ __forceinline__ float score_fma(float sq, float cross) {
   return __fmaf_rn(-2.0f, cross, sq);
 }
 
-// Shared-memory staging of one bin, done by the whole block: the bf16 halves
-// of the first 8 lanes of its cb rows (row stride ld floats) and its masked
-// |b|^2 row. Needs cb * 17 floats of shared memory.
-struct BinStage {
-  float* hi;  // [cb][8]
-  float* lo;  // [cb][8]
-  float* sq;  // [cb]
-};
-
-__device__ __forceinline__ BinStage stage_bin(float* smem, const float* rows,
-                                              int ld, const float* sq_b,
-                                              int cb) {
-  BinStage s{smem, smem + cb * 8, smem + cb * 16};
-  for (int i = threadIdx.x; i < cb * 8; i += blockDim.x) {
-    bf16_split(rows[(i >> 3) * ld + (i & 7)], s.hi[i], s.lo[i]);
-  }
-  for (int i = threadIdx.x; i < cb; i += blockDim.x) s.sq[i] = sq_b[i];
-  return s;
-}
-
 // One raw query row p prepared for a bin's search: qc = p @ G + off
 // (g: the (8, 8) similarity G row-major; off = b_row - rep), its weighted
 // qw = qc * w8 split into bf16 halves, sq_q = |qc|^2_w, and
@@ -117,34 +96,6 @@ __device__ __forceinline__ void prep_query(const float p[8], float qvalid,
   sq_q = lane_dot<8>(qw, qc, 1);
   const float vo = (fabsf(p[0]) + fabsf(p[1]) + fabsf(p[2])) > 0.0f ? 1.0f : 0.0f;
   valid = __fmul_rn(qvalid, vo);
-}
-
-// One query slot searched against its staged bin.
-struct Match {
-  float qc[8];  // transformed, rep-centered query p @ G + (b_row - rep)
-  float sq_q;   // |qc|^2_w
-  float best;   // min_c sq_b[c] - 2 dot3(qc * w8, b_c): +inf if all masked
-  int slot;     // first argmin
-  float valid;  // qvalid * (|p_xyz|_1 > 0)
-};
-
-__device__ __forceinline__ Match search(const float p[8], float qvalid,
-                                        const float* g, const float* off,
-                                        const float w8[8], const BinStage& bin,
-                                        int cb) {
-  Match r;
-  float hi[8], lo[8];
-  prep_query(p, qvalid, g, off, w8, r.qc, hi, lo, r.sq_q, r.valid);
-  r.best = inf();
-  r.slot = 0;
-  for (int c = 0; c < cb; ++c) {
-    const float score = score_fma(bin.sq[c], dot3_8_fma(hi, lo, bin.hi + c * 8, bin.lo + c * 8));
-    if (score < r.best) {
-      r.best = score;
-      r.slot = c;
-    }
-  }
-  return r;
 }
 
 __device__ __forceinline__ bool is_finite(float x) {

@@ -59,6 +59,14 @@ def qangle_deg(q: torch.Tensor) -> torch.Tensor:
     return torch.rad2deg(2.0 * torch.atan2(vec_norm, q[..., 3]))
 
 
+def qaxis(q: torch.Tensor) -> torch.Tensor:
+    """Rotation axis of a unit quaternion (a unit vector; arbitrary at a
+    zero angle)."""
+    v = q[..., :3]
+    n = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    return v / torch.where(n > 0, n, torch.ones_like(n))
+
+
 def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     """Unit quaternion [x, y, z, w] -> 3x3 rotation matrix."""
     x, y, z, w = q.unbind(-1)
@@ -114,3 +122,28 @@ def transform_points(points8: torch.Tensor, q: torch.Tensor, t: torch.Tensor,
     columns 3:8 pass through."""
     new_xyz = s * qrotate(q, points8[..., :3]) + t
     return torch.cat([new_xyz, points8[..., 3:]], dim=-1)
+
+
+def transform_points_matrix(points8: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """Apply a row-major 4x4 homogeneous transform (sR folded into R) to the
+    geometric half of (n, 8) points, the reference's ``icpTransform_Matrix``:
+    only x, y, z are rewritten; columns 3:8 pass through."""
+    new_xyz = points8[..., :4] @ T[:3, :].T
+    return torch.cat([new_xyz, points8[..., 3:]], dim=-1)
+
+
+def similarity_to_matrix(q: torch.Tensor, t: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The 4x4 homogeneous matrix [[s R(q), t], [0, 1]]."""
+    top = torch.cat([s * quat_to_matrix(q), t[:, None]], dim=1)
+    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=top.dtype, device=top.device)
+    return torch.cat([top, bottom], dim=0)
+
+
+def pack_T(q: torch.Tensor, t: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The reference's T-buffer layout [qx, qy, qz, qw, tx, ty, tz, s] (8,)."""
+    return torch.cat([q, t, s.reshape(1)])
+
+
+def unpack_T(T8: torch.Tensor):
+    """Inverse of :func:`pack_T`: (q, t, s)."""
+    return T8[:4], T8[4:7], T8[7]

@@ -7,7 +7,8 @@ then steps until ``max_iterations`` or until the new state passes
 loop condition is false is computed but not taken (``torch.where`` keeps
 the old state and ``k`` stops counting), and the host reads the loop
 condition once per chunk. The final state and ``k`` equal those of the
-step-by-step loop.
+step-by-step loop. :func:`register_batch` runs the same loop over the lanes
+of a batch of pairs.
 """
 
 from __future__ import annotations
@@ -42,6 +43,41 @@ def _select(take: torch.Tensor, new: ICPState, old: ICPState) -> ICPState:
         for f in dataclasses.fields(ICPState)})
 
 
+def _run_lanes(movings: list, targets: list, params: ICPParams,
+               config: ICPConfig, inits: list) -> list:
+    """The loop of :func:`icp_run` over independent lanes (pairs): each lane
+    keeps its own state and done flag, and a lane whose loop condition is
+    false is frozen by ``torch.where`` while the others step. The host reads
+    once per chunk whether any lane still runs, so each lane ends with the
+    state and ``k`` that :func:`icp_run` gives its pair alone."""
+    dev = movings[0].device
+    states = list(inits)
+    dones = [torch.zeros((), dtype=torch.bool, device=dev) for _ in movings]
+    # The moving normals (symmetric PLANE / GICP) are loop-invariant: once
+    # per registration, not once per step.
+    mnormals = [normals_for(m, config.normal_mode)
+                if config.needs_normals and gn_mode(config) != "plane" else None
+                for m in movings]
+
+    def running(s: ICPState, done: torch.Tensor) -> torch.Tensor:
+        return torch.logical_and(s.k < config.max_iterations,
+                                 torch.logical_or(s.k == 0,
+                                                  torch.logical_not(done)))
+
+    def any_running() -> bool:  # one host read
+        return bool(torch.stack([running(s, d) for s, d in zip(states, dones)]).any())
+
+    while any_running():
+        for _ in range(CHUNK):
+            for i, (moving8, target) in enumerate(zip(movings, targets)):
+                take = running(states[i], dones[i])
+                new = icp_step(states[i], moving8, target, params, config,
+                               moving_normals=mnormals[i])
+                states[i] = _select(take, new, states[i])
+                dones[i] = torch.where(take, converged(new, params), dones[i])
+    return states
+
+
 def icp_run(moving8: torch.Tensor, target: Target, params: ICPParams,
             config: ICPConfig, init: ICPState | None = None) -> ICPState:
     """Run ICP to convergence: at least one iteration; stop after
@@ -49,28 +85,8 @@ def icp_run(moving8: torch.Tensor, target: Target, params: ICPParams,
     thresholds. ``target`` is what :func:`build_target` returns for
     ``config``."""
     dev = moving8.device
-    params = params.to(dev)
     state = identity_state(moving8.dtype, dev) if init is None else init
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    # The moving normals (symmetric PLANE / GICP) are loop-invariant: once
-    # per registration, not once per step.
-    mnormals = None
-    if config.needs_normals and gn_mode(config) != "plane":
-        mnormals = normals_for(moving8, config.normal_mode)
-
-    def running(s: ICPState, done: torch.Tensor) -> torch.Tensor:
-        return torch.logical_and(s.k < config.max_iterations,
-                                 torch.logical_or(s.k == 0,
-                                                  torch.logical_not(done)))
-
-    while bool(running(state, done)):  # one host read per chunk
-        for _ in range(CHUNK):
-            take = running(state, done)
-            new = icp_step(state, moving8, target, params, config,
-                           moving_normals=mnormals)
-            state = _select(take, new, state)
-            done = torch.where(take, converged(new, params), done)
-    return state
+    return _run_lanes([moving8], [target], params.to(dev), config, [state])[0]
 
 
 def build_index(fixed8: torch.Tensor, params: ICPParams,
@@ -99,6 +115,19 @@ def build_target(fixed8: torch.Tensor, params: ICPParams,
     return fixed8
 
 
+def _check_landmarks(fixed8: torch.Tensor, moving8: torch.Tensor, batched: bool) -> None:
+    """Both sets (m, 8), or (B, m, 8) with one B, float32 on one device."""
+    if fixed8.device != moving8.device:
+        raise ValueError(f"fixed8 on {fixed8.device}, moving8 on {moving8.device}")
+    shape, ndim = ("(B, m, 8)", 3) if batched else ("(m, 8)", 2)
+    for name, x in (("fixed8", fixed8), ("moving8", moving8)):
+        if x.dtype != torch.float32 or x.dim() != ndim or x.shape[-1] != 8:
+            raise ValueError(f"{name}: expected {shape} float32, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+    if fixed8.shape[:-2] != moving8.shape[:-2]:
+        raise ValueError(f"batch sizes differ: {fixed8.shape[0]} and {moving8.shape[0]}")
+
+
 def register(fixed8: torch.Tensor, moving8: torch.Tensor,
              params: ICPParams, config: ICPConfig) -> ICPState:
     """Full registration: build the search target over the fixed landmarks
@@ -108,12 +137,36 @@ def register(fixed8: torch.Tensor, moving8: torch.Tensor,
     Args:
       fixed8, moving8: (m, 8) float32 landmarks on one device.
     """
-    if fixed8.device != moving8.device:
-        raise ValueError(f"fixed8 on {fixed8.device}, moving8 on {moving8.device}")
-    for name, x in (("fixed8", fixed8), ("moving8", moving8)):
-        if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 8:
-            raise ValueError(f"{name}: expected (m, 8) float32, got "
-                             f"{tuple(x.shape)} {x.dtype}")
+    _check_landmarks(fixed8, moving8, batched=False)
     fixed8, moving8 = fixed8.contiguous(), moving8.contiguous()
     params = params.to(fixed8.device)
     return icp_run(moving8, build_target(fixed8, params, config), params, config)
+
+
+def register_batch(fixed8: torch.Tensor, moving8: torch.Tensor,
+                   params: ICPParams, config: ICPConfig) -> ICPState:
+    """Register a batch of pairs (the JAX package's ``vmap`` of
+    :func:`register`): one search target per pair, then one chunked loop
+    over all pairs, each pair a lane with its own state, frozen once its
+    loop condition is false, and one host read per chunk for the whole
+    batch. Each lane's step launches that lane's kernels, so each lane's
+    result, ``k`` included, is :func:`register` of its pair.
+
+    Args:
+      fixed8, moving8: (B, m, 8) float32 landmark sets on one device.
+      params, config: shared by the batch.
+    Returns:
+      an ICPState with a leading batch axis on every field.
+    """
+    _check_landmarks(fixed8, moving8, batched=True)
+    if fixed8.shape[0] == 0:
+        raise ValueError("register_batch needs at least one pair")
+    dev = fixed8.device
+    params = params.to(dev)
+    fixed = [f.contiguous() for f in fixed8]
+    movings = [m.contiguous() for m in moving8]
+    targets = [build_target(f, params, config) for f in fixed]
+    states = _run_lanes(movings, targets, params, config,
+                        [identity_state(moving8.dtype, dev) for _ in movings])
+    return ICPState(**{f.name: torch.stack([getattr(s, f.name) for s in states])
+                       for f in dataclasses.fields(ICPState)})

@@ -56,7 +56,7 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def index_from_numpy(fields: Mapping[str, Any], device="cpu") -> RBCIndex:
+def index_from_numpy(fields: Mapping[str, Any], device="cuda") -> RBCIndex:
     """The port's RBCIndex from an index's fields as numpy arrays.
 
     ``fields`` maps each :class:`RBCIndex` field name to an array (e.g. the
@@ -65,7 +65,8 @@ def index_from_numpy(fields: Mapping[str, Any], device="cpu") -> RBCIndex:
     fields (``normals``, ``bin_normals``, ``bins_vals12``, ``gn_w``) cross
     as they are: None where the source index has None or lacks the field.
     Integer fields become int32 and float fields float32, as the port keeps
-    them.
+    them. The index lands on ``device``, the card unless the caller names
+    another.
     """
     out = {}
     for f in dataclasses.fields(RBCIndex):

@@ -21,6 +21,21 @@ def get_landmarks(cloud8: torch.Tensor) -> torch.Tensor:
     return lms.reshape(LM_GRID * LM_GRID, 8)
 
 
+def get_representatives(landmarks8: torch.Tensor, n_ry: int, n_rx: int) -> torch.Tensor:
+    """(n_ry * n_rx, 8) representatives of the 128x128 landmark grid, the
+    reference's ``getReps``: stride 128/n_r per axis with a centered offset,
+
+        rep[ry, rx] = lms[ry * stepY + stepY/2 - 1, rx * stepX + stepX/2 - 1]
+    """
+    grid = landmarks8.reshape(LM_GRID, LM_GRID, 8)
+    step_x = LM_GRID // n_rx
+    step_y = LM_GRID // n_ry
+    y0 = step_y // 2 - 1
+    x0 = step_x // 2 - 1
+    reps = grid[y0:y0 + n_ry * step_y:step_y, x0:x0 + n_rx * step_x:step_x]
+    return reps.reshape(n_ry * n_rx, 8)
+
+
 def sample_representative_indices(n: int, n_r: int,
                                   grid: tuple[int, int] | None = None,
                                   device=None) -> torch.Tensor:
@@ -49,3 +64,12 @@ def sample_representative_indices(n: int, n_r: int,
     step = n // n_r
     return (torch.arange(n_r, device=device) * step
             + max(step // 2 - 1, 0)).to(torch.int32)
+
+
+def sample_representatives(points8: torch.Tensor, n_r: int,
+                           grid: tuple[int, int] | None = None) -> torch.Tensor:
+    """The representatives of a landmark set of any size: the rows
+    :func:`sample_representative_indices` picks (on the 16384-landmark grid,
+    :func:`get_representatives`'s)."""
+    idx = sample_representative_indices(points8.shape[0], n_r, grid, device=points8.device)
+    return points8[idx.long()]

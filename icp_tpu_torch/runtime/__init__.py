@@ -1,1 +1,1 @@
-"""Runtime layer: configuration."""
+"""Runtime layer: configuration and timing."""

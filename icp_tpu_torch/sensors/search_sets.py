@@ -39,3 +39,22 @@ def all_equal(n_r: int, cq: int, cb: int, v: int, seed: int = 0):
         sq_b[3, :min(600, cb - 1)] = np.inf
     vals = (g.normal(size=(n_r, cb, v)) * 1000).astype(np.float32)
     return (qc * W8).astype(np.float32), bins_c.astype(np.float32), sq_b, vals
+
+
+def min_dists_all_equal(n_r: int, cq: int, cb: int, seed: int = 0):
+    """K4's arguments (``icp_tpu_torch.kernels.fused_step.bin_min_dists``,
+    alpha apart) on the bins of :func:`all_equal`: (mg, qvalid, reps,
+    bins_c, sq_b_masked, G, b_row). The raw query rows take G the identity
+    and every rep and b_row 0, so qc is the row itself; about 20 % of the
+    slots have qvalid 0 and every seventh row zero geometry, both +inf.
+    Every live slot of a bin ties, so the d2 is the same whichever slot
+    wins; the set holds the search's merges to the twin's bits when all
+    partial minima are equal."""
+    _, bins_c, sq_b, _ = all_equal(n_r, cq, cb, 8, seed)
+    g = np.random.default_rng(seed + 1)
+    mg = (g.normal(size=(n_r, cq, 8)) * SCALE).astype(np.float32)
+    mg[..., 3] = mg[..., 7] = 1.0
+    mg[:, ::7, :3] = 0.0
+    qvalid = (g.uniform(size=(n_r, cq)) > 0.2).astype(np.float32)
+    return (mg, qvalid, np.zeros((n_r, 8), np.float32), bins_c, sq_b,
+            np.eye(8, dtype=np.float32), np.zeros((1, 8), np.float32))

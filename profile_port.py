@@ -11,8 +11,12 @@ activities), ending in ``torch.cuda.synchronize()``. Per cell it prints the
 host wall time of the profiled call, the device time (the sum of the
 durations of the device events: kernels, copies and fills, which run one at
 a time on the one stream), their count, the idle share 1 - device / wall,
-and the largest device operations by name. The estimator
-``knn_normals_rbc`` at 262144 points is profiled alone too (one call).
+and the largest device operations by name. The cells: flagship POINT and
+BRUTE POINT, PLANE and robust-adaptive PLANE (K4 and the device median) on
+the rendered pair, POINT at 4x and 16x, LiDAR PLANE, and
+``register_batch`` of four flagship POINT pairs (8 steps each). The
+estimator ``knn_normals_rbc`` at 262144 points is profiled alone too (one
+call).
 With ``--gate16x`` it only times the 16x POINT registration (262144 x
 2048, ``chip_smoke.py``'s ``icp_16x`` gate) to convergence, once with K3
 and once with K3's plain twin in its place: k, the errors against the
@@ -243,7 +247,8 @@ def _search_kernels(dev, rounds: int = 3) -> dict:
 def _cells(dev) -> dict:
     """Each cell's profile of 8 steps, and the estimator's of one call."""
     from chip_smoke import ALPHA, _rendered_pair
-    from icp_tpu_torch import Correspondence, ICPConfig, ICPParams, Objective, register
+    from icp_tpu_torch import (Correspondence, ICPConfig, ICPParams, Objective,
+                               RobustKernel, Weighting, register, register_batch)
     from icp_tpu_torch.ops.normals import knn_normals_rbc
     from icp_tpu_torch.sensors.synthetic import synthetic_pair, wavy_surface_pair
 
@@ -253,8 +258,11 @@ def _cells(dev) -> dict:
         return [torch.as_tensor(a).to(dev) for a in arrays]
 
     flag = on_card(*synthetic_pair(16384, seed=0))
-    la, lb, _ = _rendered_pair()
+    la, lb, lb_dirty = _rendered_pair()
     rendered = on_card(la, lb)
+    dirty = on_card(la, lb_dirty)
+    batch = [on_card(*synthetic_pair(16384, seed=seed)) for seed in range(4)]
+    batch_f, batch_m = (torch.stack([pair[i] for pair in batch]) for i in (0, 1))
     wavy16 = on_card(*wavy_surface_pair(262144)[:2])
     wavy4 = on_card(*wavy_surface_pair(65536)[:2])
     cells = {
@@ -262,6 +270,9 @@ def _cells(dev) -> dict:
         "BRUTE POINT 16384": (flag, ICPConfig(correspondence=Correspondence.BRUTE)),
         "PLANE 16384x256 rendered": (rendered, ICPConfig(objective=Objective.PLANE,
                                                          estimate_scale=False)),
+        "robust PLANE 16384x256 rendered, adaptive": (dirty, ICPConfig(
+            objective=Objective.PLANE, weighting=Weighting.REGULAR,
+            robust=RobustKernel.TRIMMED, robust_adaptive=True, estimate_scale=False)),
         "POINT 65536x1024": (wavy4, ICPConfig(m=65536, n_r=1024)),
         "POINT 262144x2048": (wavy16, ICPConfig(m=262144, n_r=2048)),
         "LiDAR PLANE 262144x2048 knn": (wavy16, ICPConfig(
@@ -271,6 +282,8 @@ def _cells(dev) -> dict:
     calls = {name: (lambda f=fixed, m=moving, c=dataclasses.replace(
                         config, max_iterations=8): register(f, m, fast, c))
              for name, ((fixed, moving), config) in cells.items()}
+    calls["register_batch POINT B4 16384x256"] = lambda: register_batch(
+        batch_f, batch_m, fast, ICPConfig(max_iterations=8))
     calls["knn_normals_rbc 262144"] = lambda: knn_normals_rbc(wavy16[0])
     results = {}
     for name, call in calls.items():

@@ -212,7 +212,7 @@ def test_rbc_gn_system_on_jax_index(rng, mode, robust, adaptive):
     reps = db[rng.choice(np.arange(20, n), 16, replace=False)]
     jidx = JC.rbc_construct(jnp.asarray(db), jnp.asarray(reps), jnp.float32(ALPHA),
                             64, normals=jnp.asarray(normals))
-    tidx = index_from_numpy(jax.tree.map(np.asarray, jidx._asdict()))
+    tidx = index_from_numpy(jax.tree.map(np.asarray, jidx._asdict()), device="cpu")
     assert tidx.bins_vals12 is not None and tidx.gn_w is not None
     moving = make_cloud8(rng, n)
     moving[30:40] = 0.0

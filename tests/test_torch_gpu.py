@@ -222,19 +222,68 @@ def rendered():
                 nm=gl.grouped[1], qvalid=gl.valid.to(torch.float32), search=search)
 
 
-def test_bin_min_dists_kernel_matches_twin(rendered):
+def _k4_step_args(dev, fixed, moving, cfg):
+    """The arguments that the first robust-adaptive step hands K4."""
+    from icp_tpu_torch import ICPParams, icp_step
+    from icp_tpu_torch.icp.run import build_index
+    from icp_tpu_torch.icp.state import identity_state
+    from icp_tpu_torch.rbc import search
+
+    params = ICPParams(alpha=2e2).to(dev)
+    seen = []
+    real = search.bin_min_dists
+    search.bin_min_dists = lambda *a: seen.append(a) or real(*a)
+    try:
+        icp_step(identity_state(torch.float32, dev), moving,
+                 build_index(fixed, params, cfg), params, cfg)
+    finally:
+        search.bin_min_dists = real
+    return seen[0]
+
+
+@pytest.mark.parametrize("case", ["rendered", "rendered plane_sym step", "n_r=256", "n_r=32",
+                                  "n_r=16", "n_r=8", "all-equal 256", "all-equal 16",
+                                  "all-equal 8"])
+def test_bin_min_dists_kernel_matches_twin(rendered, case):
+    """K4 against its twin, bitwise (the +inf set and every finite d2): on
+    the rendered pair's first-iteration table (strided rows of the 11-wide
+    grouped table) and on what a robust-adaptive symmetric-PLANE step hands
+    it there (the 11-wide table again); on what robust-adaptive POINT steps
+    of the flagship pair hand it at n_r 256, 32, 16 and 8 (cq up to 3072, cb up to 4096: several query and bin
+    tiles in bounded shared memory); and on the all-equal bins of
+    sensors/search_sets.py, where every partial minimum ties."""
+    from icp_tpu_torch import ICPConfig, Objective, RobustKernel, Weighting
     from icp_tpu_torch.kernels import fused_step as fs
+    from icp_tpu_torch.sensors.search_sets import ALPHA, min_dists_all_equal
 
     r = rendered
-    args = (r["mg"], r["qvalid"]) + r["search"]
+    dev = r["dev"]
+    if case == "rendered":
+        args = (r["mg"], r["qvalid"]) + r["search"]
+    elif case == "rendered plane_sym step":
+        args = _k4_step_args(dev, r["fixed_d"], r["moving_d"], ICPConfig(
+            objective=Objective.PLANE, plane_symmetric=True, weighting=Weighting.REGULAR,
+            robust=RobustKernel.TRIMMED, robust_adaptive=True, estimate_scale=False))
+        assert args[0].stride(1) == 11  # lanes 0:8 of the 11-wide table
+    elif case.startswith("n_r="):
+        n_r = int(case[4:])
+        fixed, moving = (torch.from_numpy(a).to(dev) for a in synthetic_pair(M))
+        args = _k4_step_args(dev, fixed, moving, ICPConfig(
+            n_r=n_r, robust=RobustKernel.HUBER, robust_adaptive=True))
+        assert args[0].shape[0] == n_r
+    else:
+        n_r = int(case.split()[1])
+        cq, cb = {256: (96, 128), 16: (1536, 2048), 8: (3072, 4096)}[n_r]
+        args = tuple(torch.from_numpy(x).to(dev) for x in min_dists_all_equal(n_r, cq, cb))
+        args += (ALPHA,)
     before = fs.bin_min_dists.launches
-    got = fs.bin_min_dists(*args)  # strided rows of the 11-wide table
+    got = fs.bin_min_dists(*args)
     want = fs.bin_min_dists_ref(*args)
     torch.cuda.synchronize()
     assert fs.bin_min_dists.launches == before + 1
-    fin = torch.isfinite(want)
-    assert torch.equal(torch.isfinite(got), fin)
-    assert float((got[fin] - want[fin]).abs().max()) <= 1e-6 * float(want[fin].max())
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool(torch.isfinite(want).any()) and bool(torch.isinf(want).any())
 
 
 @pytest.mark.parametrize("mode", ["plane", "plane_sym", "gicp"])
@@ -902,29 +951,51 @@ def test_bin_gn_moments_kernel_at_step_shapes(gn_cases, shape, mode):
 
 
 @pytest.mark.parametrize("case", ["brute_point", "plane", "gicp", "unfused_point",
-                                  "unfused_plane"])
+                                  "unfused_plane", "fused_point", "robust_point",
+                                  "robust_plane", "plane_sym", "unfused_gicp",
+                                  "brute_plane"])
 def test_step_chunk_reads_nothing_back(cuda_dev, rendered, case):
-    """One 8-step chunk of icp_run (BRUTE POINT with K6 and its margin and
-    the unfused RBC POINT step with K5 on the flagship pair; the fused PLANE
-    and GICP steps with K7 and the unfused PLANE step with K5 on the
-    rendered pair) makes no call that waits for the stream: torch's sync
-    debug mode raises on one. A first chunk builds the kernels."""
-    from icp_tpu_torch import Correspondence, ICPConfig, ICPParams, Objective, icp_step
+    """One 8-step chunk of icp_run makes no call that waits for the stream:
+    torch's sync debug mode raises on one. On the flagship pair: BRUTE POINT
+    (K6 and its margin), the unfused RBC POINT step (K5), the fused POINT
+    step (K1, K2, K3) and POINT + HUBER + adaptive (K4 and the device
+    median before K3). On the rendered pair: the fused PLANE, GICP and
+    symmetric-PLANE steps (K7), PLANE + TRIMMED + adaptive (K4 and the
+    median before K7), the unfused PLANE and GICP steps (K5) and BRUTE
+    PLANE (K6). A first chunk builds the kernels."""
+    from icp_tpu_torch import (Correspondence, ICPConfig, ICPParams, Objective,
+                               RobustKernel, Weighting, icp_step)
     from icp_tpu_torch.icp.run import CHUNK, _select, build_target, converged
     from icp_tpu_torch.icp.state import identity_state
     from icp_tpu_torch.ops.normals import normals_for
 
-    if case in ("brute_point", "unfused_point"):
+    if case in ("brute_point", "unfused_point", "fused_point", "robust_point"):
         fixed, moving = (torch.from_numpy(a).to(cuda_dev) for a in synthetic_pair(M))
-        cfg = (ICPConfig(correspondence=Correspondence.BRUTE) if case == "brute_point"
-               else ICPConfig(fused_point=False))
+        cfg = {"brute_point": ICPConfig(correspondence=Correspondence.BRUTE),
+               "unfused_point": ICPConfig(fused_point=False),
+               "fused_point": ICPConfig(),
+               "robust_point": ICPConfig(robust=RobustKernel.HUBER,
+                                         robust_adaptive=True)}[case]
     else:
         fixed, moving = rendered["fixed_d"], rendered["moving_d"]
-        cfg = ICPConfig(objective=Objective.GICP if case == "gicp" else Objective.PLANE,
-                        estimate_scale=False, fused_gn=case != "unfused_plane")
+        cfg = {"plane": ICPConfig(objective=Objective.PLANE, estimate_scale=False),
+               "gicp": ICPConfig(objective=Objective.GICP, estimate_scale=False),
+               "unfused_plane": ICPConfig(objective=Objective.PLANE, estimate_scale=False,
+                                          fused_gn=False),
+               "robust_plane": ICPConfig(objective=Objective.PLANE,
+                                         weighting=Weighting.REGULAR,
+                                         robust=RobustKernel.TRIMMED, robust_adaptive=True,
+                                         estimate_scale=False),
+               "plane_sym": ICPConfig(objective=Objective.PLANE, plane_symmetric=True,
+                                      estimate_scale=False),
+               "unfused_gicp": ICPConfig(objective=Objective.GICP, estimate_scale=False,
+                                         fused_gn=False),
+               "brute_plane": ICPConfig(objective=Objective.PLANE, estimate_scale=False,
+                                        correspondence=Correspondence.BRUTE)}[case]
     params = ICPParams(alpha=2e2).to(cuda_dev)
     target = build_target(fixed, params, cfg)
-    mn = normals_for(moving, cfg.normal_mode) if case == "gicp" else None
+    mn = (normals_for(moving, cfg.normal_mode)
+          if cfg.objective is Objective.GICP or cfg.plane_symmetric else None)
 
     def chunk(state, done):
         for _ in range(CHUNK):
@@ -946,3 +1017,42 @@ def test_step_chunk_reads_nothing_back(cuda_dev, rendered, case):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(state.t).all())
+
+
+# ---- slice 6: register_batch on the card -------------------------------------
+
+
+@pytest.mark.parametrize("case", ["point", "brute", "plane"])
+def test_register_batch_lanes_equal_register_on_card(cuda_dev, rendered, case):
+    """register_batch at the flagship width against register of each pair on
+    the card: every field of every lane torch.equal, k included (POINT and
+    BRUTE POINT on synthetic_pair seeds 0-2, PLANE on the rendered pair and
+    its copy with 12 % gross outliers); the lanes launch their kernels."""
+    from icp_tpu_torch import (Correspondence, ICPConfig, ICPParams, Objective,
+                               register, register_batch)
+    from icp_tpu_torch.kernels import fused_step as fs
+
+    if case == "plane":
+        rng = np.random.default_rng(5)
+        dirty = rendered["moving"].numpy().copy()
+        idx = rng.choice(dirty.shape[0], dirty.shape[0] // 8, replace=False)
+        dirty[idx, :3] += rng.uniform(250, 500, (len(idx), 3)).astype(np.float32)
+        fixed = torch.stack([rendered["fixed_d"]] * 2)
+        moving = torch.stack([rendered["moving_d"], torch.from_numpy(dirty).to(cuda_dev)])
+        cfg = ICPConfig(objective=Objective.PLANE, estimate_scale=False)
+    else:
+        pairs = [synthetic_pair(M, seed=s) for s in range(3)]
+        fixed, moving = (torch.from_numpy(np.stack([p[i] for p in pairs])).to(cuda_dev)
+                         for i in (0, 1))
+        cfg = ICPConfig(correspondence=Correspondence.BRUTE if case == "brute"
+                        else Correspondence.RBC)
+    params = ICPParams(alpha=2e2)
+    before = fs.rep_assign_counts.launches
+    batch = register_batch(fixed, moving, params, cfg)
+    torch.cuda.synchronize()
+    if case != "brute":
+        assert fs.rep_assign_counts.launches - before >= int(batch.k.max()) * fixed.shape[0]
+    for i in range(fixed.shape[0]):
+        single = register(fixed[i], moving[i], params, cfg)
+        for name in ("q", "t", "s", "qk", "tk", "sk", "k"):
+            assert torch.equal(getattr(batch, name)[i], getattr(single, name)), (i, name)

@@ -134,7 +134,7 @@ def test_rbc_point_moments_on_jax_index(rng, weighted):
     reps = db[rng.choice(np.arange(20, 512), 16, replace=False)]
     jidx = JC.rbc_construct(jnp.asarray(db), jnp.asarray(reps),
                             jnp.float32(ALPHA), 64)
-    tidx = index_from_numpy(jax.tree.map(np.asarray, jidx._asdict()))
+    tidx = index_from_numpy(jax.tree.map(np.asarray, jidx._asdict()), device="cpu")
     moving = make_cloud8(rng, 512)
     moving[30:40] = 0.0
     q = random_quat(rng, 0.05)
@@ -192,7 +192,7 @@ def test_index_from_numpy_carries_normal_fields(rng, with_normals):
     normals = rng.normal(size=(256, 3)).astype(np.float32)
     jidx = JC.rbc_construct(jnp.asarray(db), jnp.asarray(db[40:56]), jnp.float32(ALPHA),
                             64, normals=jnp.asarray(normals) if with_normals else None)
-    tidx = index_from_numpy(jax.tree.map(np.asarray, jidx._asdict()))
+    tidx = index_from_numpy(jax.tree.map(np.asarray, jidx._asdict()), device="cpu")
     for name in ("normals", "bin_normals", "bins_vals12", "gn_w"):
         a, b = getattr(jidx, name), getattr(tidx, name)
         if a is None:

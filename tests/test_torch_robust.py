@@ -144,7 +144,7 @@ def test_rbc_point_moments_adaptive_on_jax_index(rng, robust, weighted):
     db[7:19] = 0.0
     reps = db[rng.choice(np.arange(20, 512), 16, replace=False)]
     jidx = JC.rbc_construct(jnp.asarray(db), jnp.asarray(reps), jnp.float32(ALPHA), 64)
-    tidx = index_from_numpy(jax.tree.map(np.asarray, jidx._asdict()))
+    tidx = index_from_numpy(jax.tree.map(np.asarray, jidx._asdict()), device="cpu")
     moving = make_cloud8(rng, 512)
     moving[30:40] = 0.0
     q = random_quat(rng, 0.05)

@@ -103,7 +103,7 @@ def _index_pair(rng, n=2048, n_r=32, cb=128, with_normals=False):
         normals /= np.linalg.norm(normals, axis=1, keepdims=True)
     jidx = JC.rbc_construct(jnp.asarray(db), jnp.asarray(reps), jnp.float32(ALPHA),
                             cb, normals=None if normals is None else jnp.asarray(normals))
-    return jidx, index_from_numpy(jax.tree.map(np.asarray, jidx._asdict())), queries
+    return jidx, index_from_numpy(jax.tree.map(np.asarray, jidx._asdict()), device="cpu"), queries
 
 
 @pytest.mark.parametrize("cq, with_normals", [(96, False), (40, False), (96, True)])

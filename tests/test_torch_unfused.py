@@ -140,7 +140,7 @@ def scene():
     reps = fixed[rng.choice(np.arange(20, 2048), 32, replace=False)]
     jidx = j_rbc_construct(jnp.asarray(fixed), jnp.asarray(reps), jnp.float32(ALPHA),
                            128, normals=jnp.asarray(fn))
-    tidx = index_from_numpy(jax.tree.map(np.asarray, jidx._asdict()))
+    tidx = index_from_numpy(jax.tree.map(np.asarray, jidx._asdict()), device="cpu")
     q = random_quat(rng, 0.02)
     t = (rng.normal(size=3) * 5).astype(np.float32)
     return dict(fixed=fixed, moving=moving, fn=fn, mn=mn, jidx=jidx, tidx=tidx,

@@ -139,6 +139,31 @@ flagship width (m 16384, n_r 256):
     cloud (307200, 8) with the colour half untouched, and reset; POINT +
     HUBER + adaptive at n_r 8 (K4 at cb 4096) within 1.0 mm and 0.05 deg.
 
+Slice 7 (the odometry front end: sensors, runtime, SE(3) and the
+frame-to-frame chain) adds, at full width (640 x 480 frames, m 16384, n_r
+256):
+
+3f. The bench's two 100-frame real-terrain sequences (bench.py:419-449,
+    493-513: orbit_trajectory(100, 120 mm, 0.12 rad) and the rotation-heavy
+    (100, 60 mm, 0.5 rad)), observed on one terrain_surface by
+    sensors.realdata in a pool of forked processes (one per core; the
+    render's seconds printed), landmarks taken on the card, then
+    odometry_chain_device with GICP, max_iterations 8 and zero thresholds,
+    the whole call under torch.cuda.set_sync_debug_mode("error"): ATE
+    < 22 mm and RPE10 < 5.5 mm, the rotation arc ATE < 30 mm and RPE10
+    < 7.5 mm (bench.py:479, 510), every k 8, K1, K2 and K7 launched; the
+    marginal odometry_frames_per_s, 50 / (T(100) - T(50)), the least of 3
+    rounds each; run_odometry against odometry_chain_device on 4 rendered
+    frames (POINT, max_gap 2): poses and k torch.equal, ATE < 15 mm, K3
+    launched; a TUM round trip (3 frames through the PNG codec, then
+    run_odometry and evaluate_trajectory: ATE and RPE_t < 0.02 m, RPE_r
+    < 1 deg, a drifted copy worse); the native host library built under
+    build/ and five frames written by its codec and streamed by FrameSource
+    through its ring, frame 0 -> 1 registered torch.equal to the frames
+    passed directly; the guided filter on a terrain frame on the card
+    within 1 mm (depth) and 1e-4 (colour) of the CPU, holes kept 0, its
+    device ms printed.
+
 The line before the last is {"kernels": [...]}: per kernel its launches on
 the main path, its largest error against the twin over every shape checked
 (and, for K1, K1′, K2, K3 and K7, max_abs_err_16x at the 16x shape apart), its
@@ -246,11 +271,11 @@ def _rendered_pair():
     from icp_tpu_torch.ops.sampling import get_landmarks
     from icp_tpu_torch.sensors import synthetic
 
-    scene = synthetic.default_scene()
+    scene = synthetic.default_scene(device="cpu")
     pose_b = synthetic.CameraPose(torch.tensor(Q_GT_R, dtype=torch.float32),
                                   torch.tensor(T_GT_R, dtype=torch.float32))
     la = get_landmarks(synthetic.render_cloud(
-        scene, synthetic.CameraPose.identity()).reshape(-1, 8)).contiguous()
+        scene, synthetic.CameraPose.identity(device="cpu")).reshape(-1, 8)).contiguous()
     lb = get_landmarks(synthetic.render_cloud(scene, pose_b).reshape(-1, 8)).contiguous()
     rng = np.random.default_rng(5)
     dirty = lb.numpy().copy()
@@ -576,6 +601,217 @@ def _cuda_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# The real-terrain surface (2.25 M samples, 54 MB) while phase 3f renders:
+# the pool's workers are forked, so they read it copy-on-write instead of
+# each receiving a pickled copy or sampling it again.
+_SURFACE = None
+
+
+def _observe(pose):
+    """One real-terrain frame from a numpy (q, t) pose: a worker of phase
+    3f's process pool, which reads the surface its parent forked with."""
+    from icp_tpu_torch.sensors import realdata
+
+    return realdata.observe(*_SURFACE, *pose)
+
+
+def _render_terrain(pose_lists):
+    """Every frame of each pose list, rendered in a pool of forked
+    processes (one per core), over one terrain surface. Returns the frame
+    lists and the seconds the surface and the frames took."""
+    import concurrent.futures
+    import multiprocessing
+    import os
+
+    from icp_tpu_torch.sensors import realdata
+
+    global _SURFACE
+    t0 = time.perf_counter()
+    _SURFACE = realdata.terrain_surface()
+    jobs = [(p.q.cpu().numpy(), p.t.cpu().numpy()) for poses in pose_lists for p in poses]
+    with concurrent.futures.ProcessPoolExecutor(
+            os.cpu_count(), mp_context=multiprocessing.get_context("fork")) as pool:
+        frames = list(pool.map(_observe, jobs, chunksize=4))
+    _SURFACE = None
+    out, i = [], 0
+    for poses in pose_lists:
+        out.append(frames[i:i + len(poses)])
+        i += len(poses)
+    return out, time.perf_counter() - t0
+
+
+def odometry_phase(dev, smi, drive_call, require_launched) -> None:
+    """Phase 3f: the odometry front end at full width (640 x 480 frames,
+    m 16384, n_r 256). Raises on any failed check."""
+    import os
+    import tempfile
+
+    from icp_tpu_torch import ICPConfig, ICPParams, Objective, register
+    from icp_tpu_torch.runtime import native as host
+    from icp_tpu_torch.sensors import guided_filter, synthetic, tum
+    from icp_tpu_torch.sensors.stream import FrameSource
+    from icp_tpu_torch.slam import se3
+    from icp_tpu_torch.slam.odometry import (KeyframePolicy, absolute_trajectory_error,
+                                             frame_to_landmarks, odometry_chain_device,
+                                             relative_pose_error, run_odometry)
+
+    card = f"{torch.cuda.get_device_name(0)} ({smi})"
+    # The bench's real-terrain sequences (bench.py:419-449, 493-513): 100
+    # frames each, the second rotation-heavy.
+    arcs = {"odometry": synthetic.orbit_trajectory(100, radius_mm=120.0, yaw_rad=0.12,
+                                                    device="cpu"),
+            "odometry_rot": synthetic.orbit_trajectory(100, radius_mm=60.0, yaw_rad=0.5,
+                                                        device="cpu")}
+    frame_lists, render_s = _render_terrain(list(arcs.values()))
+    print(f"real-terrain render: {render_s:.3f} s for 200 frames of 640 x 480 "
+          f"({os.cpu_count()} processes, the surface included)", flush=True)
+    lms = {name: torch.stack([frame_to_landmarks(torch.from_numpy(f).to(dev)) for f in frames])
+           for name, frames in zip(arcs, frame_lists)}
+
+    # The bench's chain: GICP, 8 iterations, zero thresholds (bench.py:46-47).
+    seq_cfg = ICPConfig(max_iterations=8, estimate_scale=False, objective=Objective.GICP)
+    fast_d = ICPParams(alpha=ALPHA, angle_threshold_deg=0.0, translation_threshold=0.0).to(dev)
+
+    def chain(seq_lms):
+        """The whole chain, with any call that waits for the stream an error."""
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return odometry_chain_device(seq_lms, fast_d, seq_cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    bounds = {"odometry": (22.0, 5.5), "odometry_rot": (30.0, 7.5)}  # bench.py:479, 510
+    metrics = {}
+    for name, poses in arcs.items():
+        (wq, wt, ks), wall, ran = drive_call(lambda: chain(lms[name]))
+        est = [se3.Pose(wq[i].cpu(), wt[i].cpu()) for i in range(len(poses))]
+        gt = [se3.relative(poses[0], p) for p in poses]
+        ate = absolute_trajectory_error(est, gt)
+        rpe10, _ = relative_pose_error(est, gt, delta=10)
+        metrics[f"{name}_ate_mm_100f"] = ate
+        metrics[f"{name}_rpe10_mm"] = rpe10
+        print(f"{name} chain (100 frames, GICP, max_iterations 8, thresholds 0) on {card}: "
+              f"ATE {ate} mm, RPE10 {rpe10} mm (bounds {bounds[name][0]}, "
+              f"{bounds[name][1]}); ks all 8: {bool((ks == 8).all())}; wall {wall:.3f} s "
+              f"under sync debug mode; launches={ran}", flush=True)
+        if not (ate < bounds[name][0] and rpe10 < bounds[name][1]):
+            raise AssertionError(f"{name}: the chain misses the bench's drift gate")
+        if not (ks.shape == (99,) and bool((ks == 8).all())):
+            raise AssertionError(f"{name}: k {ks.tolist()}, expected 8 on every frame")
+        require_launched(ran, ("rep_assign_counts", "bin_table", "bin_gn_moments"),
+                         8 * 99, f"{name} chain")
+
+    # frames/s: the marginal rate 50 / (T(100) - T(50)) of the chain alone,
+    # the least of 3 rounds of each (bench.py's differencing).
+    best = {100: float("inf"), 50: float("inf")}
+    for _ in range(3):
+        for n in (100, 50):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            chain(lms["odometry"][:n])
+            torch.cuda.synchronize()
+            best[n] = min(best[n], time.perf_counter() - t0)
+    fps = 50 / (best[100] - best[50])
+    print(f"odometry chain on {card}: odometry_frames_per_s {fps} (T100 {best[100]} s, "
+          f"T50 {best[50]} s, least of 3 rounds); odometry_ate_mm_100f "
+          f"{metrics['odometry_ate_mm_100f']}, odometry_rpe10_mm {metrics['odometry_rpe10_mm']}, "
+          f"odometry_rot_ate_mm_100f {metrics['odometry_rot_ate_mm_100f']}, "
+          f"odometry_rot_rpe10_mm {metrics['odometry_rot_rpe10_mm']}", flush=True)
+
+    # The host chain against the device chain, POINT, on 4 rendered frames
+    # (tests/test_se3_odometry.py's trajectory and bound).
+    scene = synthetic.default_scene()
+    poses_gt = synthetic.orbit_trajectory(4, radius_mm=40.0, yaw_rad=0.03)
+    frames = [synthetic.render_cloud(scene, p) for p in poses_gt]
+    cfg_o = ICPConfig(max_iterations=40, estimate_scale=False)
+    prm = ICPParams(alpha=ALPHA)
+    host_res, wall_h, ran_h = drive_call(
+        lambda: run_odometry(frames, prm, cfg_o, policy=KeyframePolicy(max_gap=2)))
+    lms4 = torch.stack([frame_to_landmarks(f) for f in frames])
+    (wq, wt, ks), wall_d, ran_d = drive_call(lambda: odometry_chain_device(lms4, prm, cfg_o))
+    same = all(torch.equal(wq[i], p.q) and torch.equal(wt[i], p.t)
+               for i, p in enumerate(host_res.poses))
+    same_k = ks.tolist() == [int(s.k) for s in host_res.relative]
+    ate = absolute_trajectory_error(host_res.poses, [se3.Pose(p.q, p.t) for p in poses_gt])
+    print(f"run_odometry vs odometry_chain_device (4 frames, POINT): poses equal {same}, "
+          f"k equal {same_k} ({ks.tolist()}); ATE {ate} mm (bound 15); keyframes "
+          f"{host_res.keyframes}; walls {wall_h:.3f} / {wall_d:.3f} s; launches "
+          f"{ran_h} / {ran_d}", flush=True)
+    if not (same and same_k and ate < 15.0 and host_res.keyframes[0] == 0
+            and len(host_res.keyframes) >= 2):
+        raise AssertionError("the host and device odometry chains disagree or drift")
+    for ran in (ran_h, ran_d):
+        require_launched(ran, ("bin_point_moments",), 3, "4-frame POINT chain")
+
+    # A TUM round trip through the port's PNG codec (tests/test_tum.py's bounds).
+    with tempfile.TemporaryDirectory() as root:
+        tum.write_synthetic_sequence(root, n_frames=3)
+        seq = tum.load_sequence(root)
+        clouds = list(tum.sequence_clouds(seq, fx=595.0, fy=595.0))
+        res, wall, ran = drive_call(lambda: run_odometry(
+            clouds, prm, ICPConfig(estimate_scale=False), policy=KeyframePolicy(max_gap=2)))
+        est_q = torch.stack([p.q for p in res.poses])
+        est_t = torch.stack([p.t for p in res.poses])
+        ate, rpe_t, rpe_r = tum.evaluate_trajectory(seq, est_q, est_t)
+        drifted = tum.evaluate_trajectory(
+            seq, est_q, est_t.cpu() + torch.arange(3.0)[:, None] * 50.0)
+    print(f"TUM round trip (3 frames, PNG codec): ATE {ate} m, RPE_t {rpe_t} m, RPE_r "
+          f"{rpe_r} deg (bounds 0.02, 0.02, 1); drifted copy {drifted[0]} / {drifted[1]}; "
+          f"launches={ran}", flush=True)
+    if not (ate < 0.02 and rpe_t < 0.02 and rpe_r < 1.0
+            and drifted[0] > ate and drifted[1] > rpe_t):
+        raise AssertionError("the TUM round trip misses its bounds")
+    require_launched(ran, ("rep_assign_counts", "bin_table", "bin_point_moments"), 1,
+                     "TUM odometry")
+
+    # FrameSource: five real-terrain frames through the native codec and ring.
+    lib = host.load()
+    path = host.build_info.get("path") or ""
+    build_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    print(f"native host library: {path} ({'compiled' if host.build_info.get('built') else 'loaded'}"
+          f" in {host.build_info.get('seconds', 0):.2f} s)", flush=True)
+    if lib is None or not path.startswith(build_root + os.sep):
+        raise AssertionError(f"the native host library was not built under build/: "
+                             f"{host.build_info}")
+    raw = [f.reshape(-1, 8) for f in frame_lists[0][:5]]
+    with tempfile.TemporaryDirectory() as root:
+        for i, f in enumerate(raw):
+            host.write_cloud(os.path.join(root, f"frame_{i:04d}.bin"), f)
+        with FrameSource(root) as src:
+            streamed = list(src)
+            native_ring = src.native
+    if not (native_ring and [i for i, _ in streamed] == list(range(5))
+            and all(np.array_equal(c, f) for (_, c), f in zip(streamed, raw))):
+        raise AssertionError("FrameSource did not stream the frames through the native ring")
+    a = register(frame_to_landmarks(streamed[0][1]), frame_to_landmarks(streamed[1][1]),
+                 prm, seq_cfg)
+    b = register(frame_to_landmarks(torch.from_numpy(raw[0]).to(dev)),
+                 frame_to_landmarks(torch.from_numpy(raw[1]).to(dev)), prm, seq_cfg)
+    equal = all(torch.equal(getattr(a, f), getattr(b, f))
+                for f in ("q", "t", "s", "qk", "tk", "sk", "k"))
+    print(f"FrameSource (native ring, 5 frames): streamed bitwise; frame 0 -> 1 registration "
+          f"(k {int(a.k)}) equal to the frames passed directly: {equal}", flush=True)
+    if not equal:
+        raise AssertionError("streamed frames register differently")
+
+    # The guided filter on a rendered frame, card against CPU.
+    cloud = torch.from_numpy(frame_lists[0][0])
+    depth, rgb = cloud[..., 2].contiguous(), cloud[..., 4:7].contiguous()
+    depth_d, rgb_d = depth.to(dev), rgb.to(dev)
+    fd, fr = guided_filter.filter_depth(depth_d), guided_filter.filter_rgb(rgb_d)
+    dd = float((fd.cpu() - guided_filter.filter_depth(depth)).abs().max())
+    dr = float((fr.cpu() - guided_filter.filter_rgb(rgb)).abs().max())
+    holes = bool(torch.equal(fd.cpu() == 0, depth == 0))
+    ms_d = _cuda_ms(lambda: guided_filter.filter_depth(depth_d))
+    ms_r = _cuda_ms(lambda: guided_filter.filter_rgb(rgb_d))
+    print(f"guided filter on {card} (640 x 480, radius 5): filter_depth {ms_d} ms, "
+          f"filter_rgb {ms_r} ms; card vs CPU max|d| depth {dd} mm (bound 1.0), rgb {dr} "
+          f"(bound 1e-4); invalid depth kept 0: {holes} ({int((depth == 0).sum())} holes)",
+          flush=True)
+    if not (dd <= 1.0 and dr <= 1e-4 and holes):
+        raise AssertionError("the guided filter on the card disagrees with the CPU")
 
 
 def main() -> None:
@@ -1259,7 +1495,7 @@ def main() -> None:
                 torch.from_numpy(np.stack([p[0] for p in pairs[:2]])).to(dev),
                 torch.from_numpy(np.stack([p[1] for p in pairs[:2]])).to(dev), cfg_b,
                 [(Q_GT, T_GT)] * 2, (0.05, 0.005), ("brute_nn",))
-    scene = synthetic.default_scene()
+    scene = synthetic.default_scene(device="cpu")
     lc = get_landmarks(synthetic.render_cloud(scene, synthetic.CameraPose(
         torch.tensor(Q_GT_C, dtype=torch.float32), torch.tensor(T_GT_C, dtype=torch.float32))
     ).reshape(-1, 8)).contiguous()
@@ -1310,7 +1546,7 @@ def main() -> None:
 
     # The app pipelines on the reference test's 640x480 pair (tests/test_pipeline.py).
     q_app = torch.tensor([0.0, np.sin(0.003), 0.0, np.cos(0.003)], dtype=torch.float32)
-    cloud_a = synthetic.render_cloud(scene, synthetic.CameraPose.identity()).to(dev)
+    cloud_a = synthetic.render_cloud(scene, synthetic.CameraPose.identity(device="cpu")).to(dev)
     cloud_b = synthetic.render_cloud(scene, synthetic.CameraPose(
         q_app, torch.tensor([8.0, -4.0, 6.0]))).to(dev)
     cfg_app = ICPConfig(estimate_scale=False)
@@ -1354,6 +1590,9 @@ def main() -> None:
         raise AssertionError("POINT + HUBER at n_r 8: registration off the ground truth")
     require_launched(ran, ("bin_point_moments", "bin_min_dists"), int(st.k),
                      "POINT + HUBER at n_r 8")
+
+    # ---- 3f. Slice 7: the odometry front end ----------------------------------
+    odometry_phase(dev, smi, drive_call, require_launched)
 
     for name, n in launches.items():
         if n == 0:
@@ -1593,8 +1832,10 @@ def main() -> None:
                   if name in at16 else {})
                | extra.get(name, {})
                for name, (src, rep, err) in meta.items()]
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    banned = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "icp_tpu", "PIL", "matplotlib"))
+    if banned:
+        raise AssertionError(f"imported {banned}")
     print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

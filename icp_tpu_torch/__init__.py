@@ -13,7 +13,13 @@ sweeps), on the fused and unfused RBC pipelines and on BRUTE
 correspondence, with POWER / SVD / JACOBI rotation, WEIGHTED / REGULAR
 weighting and the robust kernels; ``register_batch`` for a batch of pairs,
 ``icp.pyramid.register_pyramid`` for large motions, and the reference's apps
-(``icp.pipeline.ICPStepByStep``, ``ICPRegistration``).
+(``icp.pipeline.ICPStepByStep``, ``ICPRegistration``). Around them: the
+sensors (pinhole model, renderer, real-terrain observations, guided filter,
+cloud IO, the TUM RGB-D format, the native frame stream), the runtime
+(configuration, timing, metrics, the native host library) and the odometry
+front end (``slam.se3``; ``slam.odometry.run_odometry`` and
+``odometry_chain_device``, which enqueues a whole sequence with no host
+read).
 
 Geometry runs in full float32: importing the package disables TF32 for
 matrix products and cuDNN, since TF32 shows up as ~0.5% coordinate error and

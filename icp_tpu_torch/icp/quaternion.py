@@ -11,8 +11,9 @@ import torch
 
 
 def qidentity(dtype=torch.float32, device=None) -> torch.Tensor:
-    """Identity quaternion [0, 0, 0, 1]."""
-    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
+    """Identity quaternion [0, 0, 0, 1], made on the device (a tensor
+    copied from host memory would wait for the stream)."""
+    return (torch.arange(4, device=device) == 3).to(dtype)
 
 
 def qnormalize(q: torch.Tensor) -> torch.Tensor:
@@ -20,8 +21,7 @@ def qnormalize(q: torch.Tensor) -> torch.Tensor:
 
 
 def qconj(q: torch.Tensor) -> torch.Tensor:
-    sign = torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype, device=q.device)
-    return q * sign
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
 
 
 def qmul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:

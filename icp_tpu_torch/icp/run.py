@@ -7,8 +7,11 @@ then steps until ``max_iterations`` or until the new state passes
 loop condition is false is computed but not taken (``torch.where`` keeps
 the old state and ``k`` stops counting), and the host reads the loop
 condition once per chunk. The final state and ``k`` equal those of the
-step-by-step loop. :func:`register_batch` runs the same loop over the lanes
-of a batch of pairs.
+step-by-step loop. With ``reads=False`` the host reads nothing: every chunk
+that ``max_iterations`` allows runs, and the steps past the stop are frozen,
+so the state is the same bit for bit (the odometry chain enqueues a whole
+sequence that way). :func:`register_batch` runs the same loop over the
+lanes of a batch of pairs.
 """
 
 from __future__ import annotations
@@ -44,12 +47,13 @@ def _select(take: torch.Tensor, new: ICPState, old: ICPState) -> ICPState:
 
 
 def _run_lanes(movings: list, targets: list, params: ICPParams,
-               config: ICPConfig, inits: list) -> list:
+               config: ICPConfig, inits: list, reads: bool = True) -> list:
     """The loop of :func:`icp_run` over independent lanes (pairs): each lane
     keeps its own state and done flag, and a lane whose loop condition is
     false is frozen by ``torch.where`` while the others step. The host reads
-    once per chunk whether any lane still runs, so each lane ends with the
-    state and ``k`` that :func:`icp_run` gives its pair alone."""
+    once per chunk whether any lane still runs (with ``reads=False``, never:
+    all ``ceil(max_iterations / CHUNK)`` chunks run), so each lane ends with
+    the state and ``k`` that :func:`icp_run` gives its pair alone."""
     dev = movings[0].device
     states = list(inits)
     dones = [torch.zeros((), dtype=torch.bool, device=dev) for _ in movings]
@@ -67,7 +71,9 @@ def _run_lanes(movings: list, targets: list, params: ICPParams,
     def any_running() -> bool:  # one host read
         return bool(torch.stack([running(s, d) for s, d in zip(states, dones)]).any())
 
-    while any_running():
+    chunks = -(-config.max_iterations // CHUNK)
+    while (any_running() if reads else chunks > 0):
+        chunks -= 1
         for _ in range(CHUNK):
             for i, (moving8, target) in enumerate(zip(movings, targets)):
                 take = running(states[i], dones[i])
@@ -79,14 +85,17 @@ def _run_lanes(movings: list, targets: list, params: ICPParams,
 
 
 def icp_run(moving8: torch.Tensor, target: Target, params: ICPParams,
-            config: ICPConfig, init: ICPState | None = None) -> ICPState:
+            config: ICPConfig, init: ICPState | None = None,
+            reads: bool = True) -> ICPState:
     """Run ICP to convergence: at least one iteration; stop after
     ``max_iterations`` in total or when the last increment is below both
     thresholds. ``target`` is what :func:`build_target` returns for
-    ``config``."""
+    ``config``. ``reads=False`` enqueues the loop with no host read and
+    gives the same state."""
     dev = moving8.device
     state = identity_state(moving8.dtype, dev) if init is None else init
-    return _run_lanes([moving8], [target], params.to(dev), config, [state])[0]
+    return _run_lanes([moving8], [target], params.to(dev), config, [state],
+                      reads=reads)[0]
 
 
 def build_index(fixed8: torch.Tensor, params: ICPParams,

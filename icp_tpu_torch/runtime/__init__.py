@@ -1,1 +1,12 @@
-"""Runtime layer: configuration and timing."""
+"""Runtime layer: configuration, timing, metrics, native bindings."""
+
+from icp_tpu_torch.runtime.config import (
+    Correspondence,
+    ICPConfig,
+    ICPParams,
+    Objective,
+    RotationMode,
+    Weighting,
+)
+from icp_tpu_torch.runtime.timing import CPUTimer, ProfilingInfo, device_time, marginal_time
+from icp_tpu_torch.runtime.metrics import MetricsSink

@@ -150,8 +150,12 @@ class ICPParams:
     robust_delta: Any = 100.0
 
     def to(self, device) -> "ICPParams":
-        """Every field as a 0-d float32 tensor on ``device``."""
-        return ICPParams(**{
-            f.name: torch.as_tensor(getattr(self, f.name), dtype=torch.float32,
-                                    device=device)
-            for f in dataclasses.fields(self)})
+        """Every field as a 0-d float32 tensor on ``device``. A Python float
+        becomes a fill there: copying it from host memory would wait for
+        the stream."""
+        def on_device(v):
+            if isinstance(v, torch.Tensor):
+                return v.to(device=device, dtype=torch.float32)
+            return torch.full((), float(v), dtype=torch.float32, device=device)
+        return ICPParams(**{f.name: on_device(getattr(self, f.name))
+                            for f in dataclasses.fields(self)})

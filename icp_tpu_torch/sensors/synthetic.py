@@ -4,9 +4,11 @@
 An analytic ray-traced scene (textured planes + spheres) rendered through
 the reference's pinhole model from any camera pose, so frame pairs come with
 exact ground-truth transforms. One vectorized pass renders all 640 x 480
-rays. Millimeters, camera looking down +z. :func:`synthetic_pair` (the
-flagship landmark pair) and :func:`wavy_surface_pair` (the unorganized
-ground-truth pairs of the scaled-shape gates) are made in numpy.
+rays on the scene's device. Millimeters, camera looking down +z. The scene
+and pose constructors put their tensors on the card unless the caller names
+another device. :func:`synthetic_pair` (the flagship landmark pair) and
+:func:`wavy_surface_pair` (the unorganized ground-truth pairs of the
+scaled-shape gates) are made in numpy.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ class CameraPose(NamedTuple):
     t: torch.Tensor  # (3,) mm
 
     @staticmethod
-    def identity(device=None):
+    def identity(device="cuda"):
         return CameraPose(qidentity(torch.float32, device),
                           torch.zeros((3,), dtype=torch.float32, device=device))
 
@@ -40,7 +42,7 @@ class Scene(NamedTuple):
     spheres: torch.Tensor
 
 
-def default_scene(n_spheres: int = 5, device=None) -> Scene:
+def default_scene(n_spheres: int = 5, device="cuda") -> Scene:
     """Corner room + large close spheres: enough 3-D structure that
     point-to-point ICP is fully constrained."""
     planes = torch.tensor(
@@ -62,7 +64,7 @@ def default_scene(n_spheres: int = 5, device=None) -> Scene:
     return Scene(planes, spheres)
 
 
-def wall_scene(device=None) -> Scene:
+def wall_scene(device="cuda") -> Scene:
     """A single textured frontal wall (geometric registration is degenerate
     in-plane; only the photometric term pins it)."""
     return Scene(
@@ -132,6 +134,25 @@ def render_cloud(scene: Scene, pose: CameraPose) -> torch.Tensor:
     registering frame B to frame A recovers the relative pose A_from_B."""
     depth, rgb = render(scene, pose)
     return backproject(depth, rgb)
+
+
+def orbit_trajectory(n_frames: int, radius_mm: float = 60.0, yaw_rad: float = 0.06,
+                     device="cuda") -> list[CameraPose]:
+    """A gentle arc of camera poses for odometry chains: per-frame
+    translation ~radius/n and yaw ~yaw/n, Kinect-scale inter-frame motion.
+    The values are made in numpy float32 (bitwise the JAX package's
+    ``orbit_trajectory``) and land on ``device``."""
+    poses = []
+    for i in range(n_frames):
+        frac = i / max(n_frames - 1, 1)
+        ang = yaw_rad * frac
+        q = np.array([0.0, np.sin(ang / 2), 0.0, np.cos(ang / 2)], np.float32)
+        t = np.array([radius_mm * np.sin(2 * np.pi * frac) * 0.5,
+                      10.0 * np.sin(4 * np.pi * frac),
+                      radius_mm * frac], np.float32)
+        poses.append(CameraPose(torch.from_numpy(q).to(device),
+                                torch.from_numpy(t).to(device)))
+    return poses
 
 
 def synthetic_pair(m: int, seed: int = 0):

@@ -3,7 +3,8 @@
 one NVIDIA GPU.
 
     python3 profile_port.py [--out build/profile.json]
-                            [--gate16x | --knn-tables | --search-kernels]
+                            [--gate16x | --knn-tables | --search-kernels
+                             | --odometry]
 
 For each cell, ``register`` runs twice to warm up, then once with
 ``max_iterations=8`` and thresholds 0 under ``torch.profiler`` (CPU and CUDA
@@ -31,6 +32,10 @@ with ``--search-kernels`` it times K9 on the estimator's arguments at
 262144 and 16384 points, and K5 on the unfused step's at the flagship (V 8),
 on the rendered PLANE pair (V 12) and over 16 bins (cq 1536, cb 2048),
 and K3 and K7, which share K5's bin staging, on the fused steps' arguments.
+With ``--odometry`` it profiles one ``odometry_chain_device`` call over the
+first 10 frames of the bench's real-terrain arc (GICP, 8 iterations,
+thresholds 0; the frames rendered by ``chip_smoke.py``'s process pool)
+and prints the device events and wrapper launches per frame pair.
 Copy the script into an unpacked parent tree to A/B it. Needs a GPU; there
 is no CPU fallback.
 """
@@ -295,6 +300,44 @@ def _cells(dev) -> dict:
     return results
 
 
+def _odometry(dev, n_frames: int = 10) -> dict:
+    """The profile of one 10-frame chain, and its launches per frame pair."""
+    from chip_smoke import ALPHA, _render_terrain
+    from icp_tpu_torch import ICPConfig, ICPParams, Objective
+    from icp_tpu_torch.kernels import fused_gn, fused_step, table_build
+    from icp_tpu_torch.sensors import synthetic
+    from icp_tpu_torch.slam.odometry import frame_to_landmarks, odometry_chain_device
+
+    poses = synthetic.orbit_trajectory(100, radius_mm=120.0, yaw_rad=0.12, device="cpu")
+    (frames,), render_s = _render_terrain([poses[:n_frames]])
+    lms = torch.stack([frame_to_landmarks(torch.from_numpy(f).to(dev)) for f in frames])
+    params = ICPParams(alpha=ALPHA, angle_threshold_deg=0.0, translation_threshold=0.0).to(dev)
+    cfg = ICPConfig(max_iterations=8, estimate_scale=False, objective=Objective.GICP)
+    wrappers = {"rep_assign_counts": fused_step.rep_assign_counts,
+                "bin_table": table_build.bin_table, "bin_gn_moments": fused_gn.bin_gn_moments}
+    odometry_chain_device(lms, params, cfg)
+    for fn in wrappers.values():
+        fn.launches = 0
+    res = _profile(lambda: odometry_chain_device(lms, params, cfg), warmup=1)
+    pairs = n_frames - 1
+    res["pairs"] = pairs
+    res["device_events_per_pair"] = res["device_events"] / pairs
+    res["wall_ms_per_pair"] = res["wall_ms"] / pairs
+    res["device_ms_per_pair"] = res["device_ms"] / pairs
+    # Each wrapper was called by the warm-up and the profiled call.
+    res["kernel_launches_per_pair"] = {name: fn.launches / (2 * pairs)
+                                       for name, fn in wrappers.items()}
+    res["render_s"] = render_s
+    print(f"odometry chain, {n_frames} real-terrain frames (GICP, 8 iterations): wall "
+          f"{res['wall_ms']} ms, device {res['device_ms']} ms in {res['device_events']} events, "
+          f"idle share {res['idle_share']}; per pair: wall {res['wall_ms_per_pair']} ms, device "
+          f"{res['device_ms_per_pair']} ms, {res['device_events_per_pair']} device events, "
+          f"kernel launches {res['kernel_launches_per_pair']}", flush=True)
+    for row in res["top"]:
+        print(f"    {row['ms']:.4f} ms  {row['name']}", flush=True)
+    return res
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="build/profile.json")
@@ -304,6 +347,8 @@ def main() -> None:
                         help="only K8, the estimator and the table gather, timed")
     parser.add_argument("--search-kernels", action="store_true",
                         help="only K9 and K5 on the main path's arguments, timed")
+    parser.add_argument("--odometry", action="store_true",
+                        help="only one 10-frame odometry chain, profiled")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_port: torch.cuda.is_available() is False; "
@@ -319,6 +364,8 @@ def main() -> None:
         results["knn_tables"] = _knn_tables(dev)
     elif args.search_kernels:
         results["search_kernels"] = _search_kernels(dev)
+    elif args.odometry:
+        results["odometry"] = _odometry(dev)
     else:
         results["cells"] = _cells(dev)
     out = Path(args.out)

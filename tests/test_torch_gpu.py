@@ -200,11 +200,11 @@ def rendered():
     from icp_tpu_torch.sensors import synthetic
 
     dev = torch.device("cuda", 0)
-    scene = synthetic.default_scene()
+    scene = synthetic.default_scene(device="cpu")
     q_b = torch.tensor([0.0, np.sin(0.004), 0.0, np.cos(0.004)], dtype=torch.float32)
     pose_b = synthetic.CameraPose(q_b, torch.tensor([10.0, -6.0, 8.0]))
     fixed, moving = (get_landmarks(synthetic.render_cloud(scene, p).reshape(-1, 8))
-                     .contiguous() for p in (synthetic.CameraPose.identity(), pose_b))
+                     .contiguous() for p in (synthetic.CameraPose.identity(device="cpu"), pose_b))
     cfg = ICPConfig(objective=Objective.PLANE, estimate_scale=False)
     params = ICPParams(alpha=2e2).to(dev)
     fixed_d, moving_d = fixed.to(dev), moving.to(dev)
@@ -1056,3 +1056,80 @@ def test_register_batch_lanes_equal_register_on_card(cuda_dev, rendered, case):
         single = register(fixed[i], moving[i], params, cfg)
         for name in ("q", "t", "s", "qk", "tk", "sk", "k"):
             assert torch.equal(getattr(batch, name)[i], getattr(single, name)), (i, name)
+
+
+# ---- slice 7: the odometry chain, the frame stream, the guided filter -------
+
+
+@pytest.fixture(scope="module")
+def orbit_lms(cuda_dev):
+    """Landmarks (16384 a frame) of three rendered frames of an orbit, made
+    on the card."""
+    from icp_tpu_torch.sensors import synthetic
+    from icp_tpu_torch.slam.odometry import frame_to_landmarks
+
+    scene = synthetic.default_scene()
+    poses = synthetic.orbit_trajectory(3, radius_mm=30.0, yaw_rad=0.02)
+    return torch.stack([frame_to_landmarks(synthetic.render_cloud(scene, p)) for p in poses])
+
+
+@pytest.mark.parametrize("objective", ["gicp", "point"])
+def test_odometry_chain_reads_nothing_and_equals_icp_run(cuda_dev, orbit_lms, objective):
+    """odometry_chain_device at the flagship width under sync debug mode
+    (no call waits for the stream), and each frame's k and world pose
+    torch.equal to icp_run's state with reads, composed on the card."""
+    from icp_tpu_torch import ICPConfig, ICPParams, Objective
+    from icp_tpu_torch.icp.quaternion import qmul, qnormalize, qrotate
+    from icp_tpu_torch.icp.run import build_index, icp_run
+    from icp_tpu_torch.slam.odometry import odometry_chain_device
+
+    cfg = ICPConfig(max_iterations=8, estimate_scale=False, objective=Objective(objective))
+    params = ICPParams(alpha=2e2).to(cuda_dev)
+    odometry_chain_device(orbit_lms, params, cfg)  # builds the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        q, t, ks = odometry_chain_device(orbit_lms, ICPParams(alpha=2e2), cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    q_w, t_w = q[0], t[0]
+    for i in range(2):
+        st = icp_run(orbit_lms[i + 1].contiguous(),
+                     build_index(orbit_lms[i].contiguous(), params, cfg), params, cfg)
+        q_w, t_w = qnormalize(qmul(q_w, st.q)), qrotate(q_w, st.t) + t_w
+        assert torch.equal(ks[i], st.k)
+        assert torch.equal(q[i + 1], q_w) and torch.equal(t[i + 1], t_w)
+
+
+def test_frame_source_native_ring(cuda_dev, tmp_path):
+    """The native prefetch ring streams the frames bitwise."""
+    from icp_tpu_torch.runtime import native
+    from icp_tpu_torch.sensors.stream import FrameSource
+
+    rng = np.random.default_rng(0)
+    frames = [rng.normal(size=(640 * 480, 8)).astype(np.float32) for _ in range(3)]
+    for i, f in enumerate(frames):
+        native.write_cloud(str(tmp_path / f"f{i}.bin"), f)
+    with FrameSource(str(tmp_path)) as src:
+        assert src.native
+        got = list(src)
+    assert [i for i, _ in got] == [0, 1, 2]
+    assert all(np.array_equal(g, f) for (_, g), f in zip(got, frames))
+
+
+def test_guided_filter_on_card_matches_cpu(cuda_dev):
+    """filter_depth within 1 mm and filter_rgb within 1e-4 of the CPU on a
+    640 x 480 render (float32 cumsums summed in another order); invalid
+    depth stays 0."""
+    from icp_tpu_torch.sensors import guided_filter as gf
+    from icp_tpu_torch.sensors import synthetic
+
+    depth, rgb = synthetic.render(synthetic.default_scene(device="cpu"),
+                                  synthetic.CameraPose.identity(device="cpu"))
+    depth[100:140, 200:260] = 0.0
+    dd = gf.filter_depth(depth.to(cuda_dev)).cpu()
+    dc = gf.filter_depth(depth)
+    assert torch.equal(dd == 0, depth == 0)
+    assert float((dd - dc).abs().max()) <= 1.0
+    assert float((gf.filter_rgb(rgb.to(cuda_dev)).cpu() - gf.filter_rgb(rgb)).abs().max()) <= 1e-4

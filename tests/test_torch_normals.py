@@ -105,12 +105,12 @@ def test_backproject_matches_jax(rng):
 def rendered():
     """Both renderers' clouds of the gate pair and the JAX landmarks."""
     out = {}
-    poses = {"a": (JY.CameraPose.identity(), TY.CameraPose.identity()),
+    poses = {"a": (JY.CameraPose.identity(), TY.CameraPose.identity(device="cpu")),
              "b": (JY.CameraPose(jnp.asarray(Q_B), jnp.asarray(T_B)),
                    TY.CameraPose(_t(Q_B), _t(T_B)))}
     for name, (jp, tp) in poses.items():
         out["j" + name] = np.asarray(JY.render_cloud(JY.default_scene(), jp))
-        out["t" + name] = TY.render_cloud(TY.default_scene(), tp).numpy()
+        out["t" + name] = TY.render_cloud(TY.default_scene(device="cpu"), tp).numpy()
         out[name] = np.asarray(JS.get_landmarks(jnp.asarray(out["j" + name]).reshape(-1, 8)))
     return out
 
@@ -149,9 +149,9 @@ def test_rendered_landmarks_match_jax(rendered):
 
 
 def test_scenes_match_jax():
-    for jsc, tsc in ((JY.default_scene(), TY.default_scene()),
-                     (JY.default_scene(3), TY.default_scene(3)),
-                     (JY.wall_scene(), TY.wall_scene())):
+    for jsc, tsc in ((JY.default_scene(), TY.default_scene(device="cpu")),
+                     (JY.default_scene(3), TY.default_scene(3, device="cpu")),
+                     (JY.wall_scene(), TY.wall_scene(device="cpu"))):
         np.testing.assert_array_equal(tsc.planes.numpy(), np.asarray(jsc.planes))
         np.testing.assert_array_equal(tsc.spheres.numpy(), np.asarray(jsc.spheres))
 

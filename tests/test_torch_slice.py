@@ -151,7 +151,7 @@ for cfg in (T.ICPConfig(m=256, n_r=16),
             T.ICPConfig(m=256, n_r=16, objective=T.Objective.GICP, estimate_scale=False)):
     st = T.register(torch.from_numpy(f), torch.from_numpy(f.copy()), T.ICPParams(), cfg)
     ks.append(int(st.k))
-synthetic.render(synthetic.wall_scene(), synthetic.CameraPose.identity())
+synthetic.render(synthetic.wall_scene(device="cpu"), synthetic.CameraPose.identity(device="cpu"))
 print(json.dumps({
     "k": min(ks),
     "modules": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "icp_tpu")),

@@ -164,6 +164,31 @@ frame-to-frame chain) adds, at full width (640 x 480 frames, m 16384, n_r
     within 1 mm (depth) and 1e-4 (colour) of the CPU, holes kept 0, its
     device ms printed.
 
+Slice 8 (the SLAM back end: the pose graph, bundle adjustment, the mapping
+engine) adds, at full width:
+
+3g. The bench's wall gate (bench.py:352-391: realdata.wall_surface, an
+    in-plane (30, -15, 4) mm motion, POINT, 60 iterations): lateral error
+    < 6 mm and |dz| < 0.5 mm at alpha 4e5, |dz| < 0.5 mm and lateral error
+    > 25 mm at alpha 1e-6, K1 and K3 launched k times; the bench's pyramid
+    pair (bench.py:325-348: PLANE, 0.06 rad about y, t (60, -40, 30) mm,
+    strides 4, 2, 1) within 2.0 mm and 0.1 deg; the bench's slam gate
+    (bench.py:521-627): the 200-frame real-terrain circle (rendered in the
+    same pool and over the same surface as 3f's arcs; its landmarks the
+    strided slice that equals get_landmarks) through SlamEngine (GICP, 8
+    iterations, max_gap 1, closures within 60 mm / 20 deg at least 50
+    keyframes apart, verification batches padded to 16) and
+    optimize_map(10): closure precision >= 0.9, recall >= 0.8, ATE after
+    < 40 mm and < 0.8 x before, every verification a 16-lane
+    register_batch, K1, K2 and K7 launched; the dense optimize on the
+    gate's graph and optimize_pcg on a 600-node ring, each twice under
+    torch.cuda.set_sync_debug_mode("error"), bitwise equal to itself, the
+    ring within 2 mm, 5e-3 in q and 1 % of the cost of the CPU's result,
+    the gate's graph within 1e-4 of its cost and 1 mm of its ATE;
+    ba_solve (32 cameras, 4096 points, degree <= 8) twice under sync debug
+    mode after its host degree check, bitwise equal, its cost falling
+    100-fold. Each phase's seconds are printed.
+
 The line before the last is {"kernels": [...]}: per kernel its launches on
 the main path, its largest error against the twin over every shape checked
 (and, for K1, K1′, K2, K3 and K7, max_abs_err_16x at the 16x shape apart), its
@@ -231,6 +256,12 @@ REFERENCE_SCALE = {"lidar": (0.0006, 1e-05), "icp_4x": (0.3154, 0.00957),
 # H100 SXM peaks (NVIDIA's data sheet, dense): fp32 outside the tensor
 # cores, TF32 on them, HBM3.
 PEAK_FP32, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12
+N_SLAM = 200  # frames of the bench's SLAM circle (bench.py:545)
+# The reference's records on its TPU run (bench.py:352-391, 325-348,
+# 521-627; ROADMAP.md), printed beside the port's: history, not targets.
+REFERENCE_WALL = (2.9862, 0.0001, 33.4991)  # lateral, z, geometry-only lateral (mm)
+REFERENCE_PYRAMID = (0.9931, 0.07668)  # mm, deg
+REFERENCE_SLAM = "200 keyframes, 15 closures, precision 1.0, recall 1.0, ATE 47.325 -> 30.254 mm"
 
 
 def _run(cmd: list[str]) -> str:
@@ -609,18 +640,26 @@ def _cuda_ms(fn, reps: int = 20) -> float:
 _SURFACE = None
 
 
-def _observe(pose):
-    """One real-terrain frame from a numpy (q, t) pose: a worker of phase
-    3f's process pool, which reads the surface its parent forked with."""
+def _observe(job):
+    """One real-terrain frame from a numpy (q, t) pose, or only its
+    landmarks (the strided slice that equals ``get_landmarks``, as
+    bench.py:552-558 takes it): a worker of the render pool, which reads
+    the surface its parent forked with."""
     from icp_tpu_torch.sensors import realdata
 
-    return realdata.observe(*_SURFACE, *pose)
+    q, t, landmarks = job
+    frame = realdata.observe(*_SURFACE, q, t)
+    if landmarks:
+        return np.ascontiguousarray(frame[49:49 + 384:3, 65:65 + 512:4].reshape(M, 8))
+    return frame
 
 
-def _render_terrain(pose_lists):
+def _render_terrain(pose_lists, landmarks_of=()):
     """Every frame of each pose list, rendered in a pool of forked
-    processes (one per core), over one terrain surface. Returns the frame
-    lists and the seconds the surface and the frames took."""
+    processes (one per core), over one terrain surface; the lists whose
+    index is in ``landmarks_of`` come back as (16384, 8) landmark sets.
+    Returns the frame lists and the seconds the surface and the frames
+    took."""
     import concurrent.futures
     import multiprocessing
     import os
@@ -630,7 +669,8 @@ def _render_terrain(pose_lists):
     global _SURFACE
     t0 = time.perf_counter()
     _SURFACE = realdata.terrain_surface()
-    jobs = [(p.q.cpu().numpy(), p.t.cpu().numpy()) for poses in pose_lists for p in poses]
+    jobs = [(p.q.cpu().numpy(), p.t.cpu().numpy(), i in landmarks_of)
+            for i, poses in enumerate(pose_lists) for p in poses]
     with concurrent.futures.ProcessPoolExecutor(
             os.cpu_count(), mp_context=multiprocessing.get_context("fork")) as pool:
         frames = list(pool.map(_observe, jobs, chunksize=4))
@@ -642,7 +682,32 @@ def _render_terrain(pose_lists):
     return out, time.perf_counter() - t0
 
 
-def odometry_phase(dev, smi, drive_call, require_launched) -> None:
+def render_sequences():
+    """The real-terrain sequences of phases 3f and 3g, rendered in one
+    pool over one surface: the bench's two 100-frame arcs
+    (bench.py:419-449, 493-513), the second rotation-heavy, and its
+    200-frame SLAM circle of radius 120 mm (bench.py:545-558), of which
+    only the landmarks come back. Returns (arcs, arc frame lists, circle
+    poses, circle landmark sets)."""
+    import os
+
+    from icp_tpu_torch.sensors import synthetic
+    from icp_tpu_torch.slam import se3
+
+    arcs = {"odometry": synthetic.orbit_trajectory(100, radius_mm=120.0, yaw_rad=0.12,
+                                                    device="cpu"),
+            "odometry_rot": synthetic.orbit_trajectory(100, radius_mm=60.0, yaw_rad=0.5,
+                                                        device="cpu")}
+    a = 2 * np.pi * np.arange(N_SLAM) / N_SLAM
+    circle = [se3.Pose(torch.tensor([0.0, 0.0, 0.0, 1.0]), torch.tensor(
+        [120.0 * np.cos(x) - 120.0, 120.0 * np.sin(x), 0.0], dtype=torch.float32)) for x in a]
+    frame_lists, render_s = _render_terrain([*arcs.values(), circle], landmarks_of=(2,))
+    print(f"real-terrain render: {render_s:.3f} s for {200 + N_SLAM} frames of 640 x 480 "
+          f"({os.cpu_count()} processes, the surface included)", flush=True)
+    return arcs, frame_lists[:2], circle, frame_lists[2]
+
+
+def odometry_phase(dev, smi, drive_call, require_launched, arcs, frame_lists) -> None:
     """Phase 3f: the odometry front end at full width (640 x 480 frames,
     m 16384, n_r 256). Raises on any failed check."""
     import os
@@ -658,15 +723,6 @@ def odometry_phase(dev, smi, drive_call, require_launched) -> None:
                                              relative_pose_error, run_odometry)
 
     card = f"{torch.cuda.get_device_name(0)} ({smi})"
-    # The bench's real-terrain sequences (bench.py:419-449, 493-513): 100
-    # frames each, the second rotation-heavy.
-    arcs = {"odometry": synthetic.orbit_trajectory(100, radius_mm=120.0, yaw_rad=0.12,
-                                                    device="cpu"),
-            "odometry_rot": synthetic.orbit_trajectory(100, radius_mm=60.0, yaw_rad=0.5,
-                                                        device="cpu")}
-    frame_lists, render_s = _render_terrain(list(arcs.values()))
-    print(f"real-terrain render: {render_s:.3f} s for 200 frames of 640 x 480 "
-          f"({os.cpu_count()} processes, the surface included)", flush=True)
     lms = {name: torch.stack([frame_to_landmarks(torch.from_numpy(f).to(dev)) for f in frames])
            for name, frames in zip(arcs, frame_lists)}
 
@@ -814,6 +870,217 @@ def odometry_phase(dev, smi, drive_call, require_launched) -> None:
         raise AssertionError("the guided filter on the card disagrees with the CPU")
 
 
+def _no_host_read(fn):
+    """(fn(), wall s) with any call that waits for the stream an error."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def slam_phase(dev, smi, drive_call, require_launched, circle, circle_lms) -> None:
+    """Phase 3g: the SLAM back end and the bench's wall, pyramid and slam
+    gates at full width (640 x 480 frames, m 16384, n_r 256). Raises on any
+    failed check."""
+    from icp_tpu_torch import ICPConfig, ICPParams, Objective, register
+    from icp_tpu_torch.icp.pyramid import register_pyramid
+    from icp_tpu_torch.icp.quaternion import qangle_deg, qconj, qmul
+    from icp_tpu_torch.ops.sampling import get_landmarks
+    from icp_tpu_torch.sensors import realdata, synthetic
+    from icp_tpu_torch.slam import bundle_adjustment as ba
+    from icp_tpu_torch.slam import mapping
+    from icp_tpu_torch.slam import pose_graph as pg
+    from icp_tpu_torch.slam import se3
+    from icp_tpu_torch.slam.odometry import KeyframePolicy
+
+    card = f"{torch.cuda.get_device_name(0)} ({smi})"
+    t0 = time.perf_counter()
+
+    # The bench's wall gate (bench.py:352-391): a frontal wall of the real
+    # photograph, in-plane motion ~2.5x the landmark pitch, POINT, 60
+    # iterations. At alpha 4e5 the colour lanes must find the lateral
+    # motion; geometry alone (alpha 1e-6) must miss it; z is exact either way.
+    wpts, wrgb = realdata.wall_surface()
+    id_q = np.array([0, 0, 0, 1], np.float32)
+    wt = np.array([30.0, -15.0, 4.0], np.float32)
+    wla, wlb = (get_landmarks(torch.from_numpy(
+        realdata.observe(wpts, wrgb, id_q, t).reshape(-1, 8)).to(dev)).contiguous()
+        for t in (np.zeros(3, np.float32), wt))
+    wall_cfg = ICPConfig(estimate_scale=False, max_iterations=60)
+    wall = {}
+    for alpha in (4e5, 1e-6):
+        st, wall_s, ran = drive_call(
+            lambda a=alpha: register(wla, wlb, ICPParams(alpha=a), wall_cfg))
+        t = st.t.cpu().numpy()
+        wall[alpha] = (float(np.linalg.norm(t[:2] - wt[:2])), abs(float(t[2]) - float(wt[2])))
+        print(f"wall, alpha {alpha} (POINT, max_iterations 60): k={int(st.k)} lateral error "
+              f"{wall[alpha][0]} mm, z error {wall[alpha][1]} mm, wall {wall_s:.3f} s; "
+              f"launches={ran}", flush=True)
+        require_launched(ran, ("rep_assign_counts", "bin_point_moments"), int(st.k),
+                         f"wall alpha {alpha}")
+    (lat, z_err), (geo_lat, geo_z) = wall[4e5], wall[1e-6]
+    print(f"wall gate on {card}: wall_lat_err_mm {lat}, wall_z_err_mm {z_err}, "
+          f"wall_geo_lat_err_mm {geo_lat} (geometry-only z {geo_z}); bounds lateral < 6, "
+          f"z < 0.5, geometry-only lateral > 25; the reference's TPU record "
+          f"{REFERENCE_WALL[0]} / {REFERENCE_WALL[1]} / {REFERENCE_WALL[2]}", flush=True)
+    if not (lat < 6.0 and z_err < 0.5 and geo_z < 0.5 and geo_lat > 25.0):
+        raise AssertionError("the wall gate fails")
+
+    # The bench's pyramid pair (bench.py:325-348): PLANE from a large
+    # offset, coarse to fine (4, 2, 1).
+    scene = synthetic.default_scene(device="cpu")
+    ident = synthetic.CameraPose.identity(device="cpu")
+    pose_c = synthetic.CameraPose(
+        torch.tensor([0.0, np.sin(0.03), 0.0, np.cos(0.03)], dtype=torch.float32),
+        torch.tensor([60.0, -40.0, 30.0]))
+    la, lc = (get_landmarks(synthetic.render_cloud(scene, p).reshape(-1, 8)).contiguous().to(dev)
+              for p in (ident, pose_c))
+    rel = se3.relative(ident, pose_c)
+    stp, wall_p, ran = drive_call(lambda: register_pyramid(
+        la, lc, ICPParams(alpha=ALPHA), ICPConfig(estimate_scale=False, objective=Objective.PLANE),
+        strides=(4, 2, 1)))
+    pyr_t = float(torch.linalg.vector_norm(stp.t.cpu() - rel.t))
+    pyr_a = float(qangle_deg(qmul(stp.q.cpu(), qconj(rel.q))))
+    print(f"bench pyramid pair on {card} (PLANE, 0.06 rad about y, t (60, -40, 30) mm, "
+          f"strides 4, 2, 1): t_err {pyr_t} mm, a_err {pyr_a} deg (bounds 2.0, 0.1); the "
+          f"reference's TPU record {REFERENCE_PYRAMID[0]} / {REFERENCE_PYRAMID[1]}; k={int(stp.k)} "
+          f"wall {wall_p:.3f} s; launches={ran}", flush=True)
+    if not (pyr_t < 2.0 and pyr_a < 0.1):
+        raise AssertionError("the bench's pyramid gate fails")
+    require_launched(ran, ("rep_assign_counts", "bin_table", "bin_gn_moments"), int(stp.k),
+                     "bench pyramid")
+    print(f"phase 3g wall + pyramid: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # The bench's slam gate (bench.py:521-627): 200 frames on a closed
+    # circle over the real terrain through SlamEngine (GICP, 8 iterations,
+    # every frame a keyframe, closures 50 keyframes apart within 60 mm and
+    # 20 deg, every verification batch padded to 16), then optimize_map.
+    t0 = time.perf_counter()
+    eng = mapping.SlamEngine(
+        params=ICPParams(alpha=2e2),
+        config=ICPConfig(estimate_scale=False, objective=Objective.GICP, max_iterations=8),
+        policy=KeyframePolicy(max_gap=1),
+        loop_config=mapping.LoopClosureConfig(max_distance=60.0, max_angle_deg=20.0,
+                                              min_gap=50, verify_pad_to=16))
+    lms = [torch.from_numpy(f).to(dev) for f in circle_lms]
+    lanes, batch = [], mapping.register_batch
+
+    def batch_spy(fixed8, moving8, *a, **kw):  # the lane count of each verification
+        lanes.append(fixed8.shape[0])
+        return batch(fixed8, moving8, *a, **kw)
+
+    mapping.register_batch = batch_spy
+    try:
+        _, t_frames, ran = drive_call(lambda: [eng.process_frame(f) for f in lms])
+    finally:
+        mapping.register_batch = batch
+    kfs, closures = eng.map.keyframes, eng.map.loop_closures
+    ts_gt = np.stack([p.t.numpy() for p in circle])
+    correct = 0
+    for (ci, cj), meas in zip(eng.map.edges, eng.map.measurements):
+        if (ci, cj) not in set(closures):
+            continue
+        gt_rel = se3.relative(circle[kfs[ci].index], circle[kfs[cj].index])
+        if (float(torch.linalg.vector_norm(meas.t.cpu() - gt_rel.t)) < 6.0
+                and float(qangle_deg(qmul(meas.q.cpu(), qconj(gt_rel.q)))) < 1.5):
+            correct += 1
+    precision = correct / max(len(closures), 1)
+    true_pairs = {(i, j) for j in range(N_SLAM) for i in range(j - eng.loop_config.min_gap)
+                  if np.linalg.norm(ts_gt[j] - ts_gt[i]) < 20.0}
+    kf_pairs = {(kfs[i].index, kfs[j].index) for (i, j) in closures}
+    recall = sum(1 for p in true_pairs if p in kf_pairs) / max(len(true_pairs), 1)
+
+    def kf_ate():
+        errs = [np.linalg.norm(kf.pose.t.cpu().numpy() - (ts_gt[kf.index] - ts_gt[0]))
+                for kf in kfs]
+        return float(np.sqrt(np.mean(np.square(errs))))
+
+    ate_before = kf_ate()
+    graph = eng._graph()  # the gate's pose graph, before the backend moves it
+
+    # The LM loops enqueue with no host read and repeat bit for bit: the
+    # dense optimize on the gate's graph, PCG on a 600-node ring. Against
+    # the CPU: on the ring, each pose within tests/test_torch_pose_graph.py's
+    # ring tolerances (2 mm, 5e-3 in q, 1 % of the cost). The gate's graph
+    # has a valley so flat (its rotations, residuals in radians beside
+    # residuals in mm, over real-terrain measurements) that two float32
+    # solves part along it by mm and degrees at one cost: there the cost
+    # is held within 1e-4 and the ATE to the ground truth within 1 mm, and
+    # the per-pose differences are printed.
+    def graph_ate(x):
+        gt = ts_gt[[kf.index for kf in kfs]] - ts_gt[0]
+        return float(np.sqrt(np.mean(np.sum((x.t.cpu().numpy() - gt) ** 2, 1))))
+
+    graph_cpu = pg.PoseGraph(*(x.cpu() for x in graph))
+    ring = pg.demo_ring_graph(600, device=dev)  # 12 closures spanning 24 nodes
+    ring_cpu = pg.PoseGraph(*(x.cpu() for x in ring))
+    for name, fn, g, g_cpu in (("optimize", pg.optimize, graph, graph_cpu),
+                               ("optimize_pcg", pg.optimize_pcg, ring, ring_cpu)):
+        a, wall_a = _no_host_read(lambda: fn(g, iterations=10))
+        b, wall_b = _no_host_read(lambda: fn(g, iterations=10))
+        same = torch.equal(a.q, b.q) and torch.equal(a.t, b.t)
+        c = fn(g_cpu, iterations=10)
+        dt = float((a.t.cpu() - c.t).abs().max())
+        dq = float((a.q.cpu() - c.q).abs().max())
+        c0, ca, cc = (float(pg.graph_cost(x)) for x in (g, a, c))
+        if g is graph:
+            close = abs(ca - cc) <= 1e-4 * cc and abs(graph_ate(a) - graph_ate(c)) <= 1.0
+            bounds = (f"ATE {graph_ate(a)} mm (CPU {graph_ate(c)}, bound 1.0 apart), cost "
+                      f"bound 1e-4 apart")
+        else:
+            close = dt <= 2.0 and dq <= 5e-3 and abs(ca - cc) <= 1e-2 * cc
+            bounds = "bounds 2.0 mm, 5e-3, cost 1e-2 apart"
+        print(f"{name} on {card} ({g.q.shape[0]} nodes, {g.edge_i.shape[0]} edges, 10 "
+              f"iterations) under sync debug mode: walls {wall_a:.4f} s (first call) and "
+              f"{wall_b:.4f} s; twice bitwise equal: {same}; cost {c0} -> {ca} (CPU {cc}); "
+              f"card vs CPU max|dt| {dt} mm, max|dq| {dq}; {bounds}", flush=True)
+        if not (same and close and ca <= c0):
+            raise AssertionError(f"{name}: not repeatable, or off the CPU's result")
+
+    t1 = time.perf_counter()
+    eng.optimize_map(iterations=10)
+    torch.cuda.synchronize()
+    opt_ms = (time.perf_counter() - t1) * 1e3
+    ate_after = kf_ate()
+    fps = N_SLAM / t_frames
+    print(f"slam gate on {card}: slam_keyframes {len(kfs)}, slam_closures {len(closures)}, "
+          f"slam_closure_precision {precision}, slam_closure_recall {recall}, "
+          f"slam_ate_before_mm {ate_before}, slam_ate_after_mm {ate_after}, "
+          f"slam_frames_per_s {fps} ({t_frames:.3f} s for {N_SLAM} frames), optimize_map "
+          f"{opt_ms:.3f} ms (10 iterations, dense); batch sizes verified {sorted(set(lanes))} "
+          f"({len(lanes)} batches, {eng.n_pairs_verified} pairs); bounds precision >= 0.9, "
+          f"recall >= 0.8, ATE after < 40 and < 0.8 x before; the reference's TPU record "
+          f"{REFERENCE_SLAM}; launches={ran}", flush=True)
+    if not (precision >= 0.9 and recall >= 0.8 and ate_after < 40.0
+            and ate_after < 0.8 * ate_before):
+        raise AssertionError("the slam gate fails")
+    if not (lanes and set(lanes) == {16} and set(eng._verify_fns) == {16}):
+        raise AssertionError(f"verification batches of {sorted(set(lanes))} lanes, not 16")
+    require_launched(ran, ("rep_assign_counts", "bin_table", "bin_gn_moments"), 8 * (N_SLAM - 1),
+                     "slam engine")
+    print(f"phase 3g slam: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ba_solve after its host degree check: no host read, bit for bit twice,
+    # and the cost falls.
+    prob = ba.demo_problem(32, 4096, 8, device=dev)
+    degree = ba.check_max_degree(prob.obs_point, prob.points.shape[0], 8)
+    a, wall_a = _no_host_read(lambda: ba._ba_solve(prob, 5, 8, 1e-4, True))
+    b, wall_b = _no_host_read(lambda: ba._ba_solve(prob, 5, 8, 1e-4, True))
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    c0, c1 = float(ba.ba_cost(prob)), float(ba.ba_cost(a))
+    print(f"ba_solve on {card} (32 cameras, 4096 points, {prob.obs_cam.shape[0]} observations, "
+          f"degree <= {degree}, 5 iterations) under sync debug mode: {wall_a * 1e3:.3f} ms "
+          f"(first call), {wall_b * 1e3:.3f} ms; twice bitwise equal: {same}; cost {c0} -> "
+          f"{c1}", flush=True)
+    if not (same and c1 < 0.01 * c0):
+        raise AssertionError("ba_solve: not repeatable, or the cost did not fall")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -843,6 +1110,13 @@ def main() -> None:
     from icp_tpu_torch.sensors import brute_sets, knn_sets, search_sets
 
     dev = torch.device("cuda", 0)
+    marks = [("1", time.perf_counter())]
+
+    def phase(name):
+        """Print the seconds of the phase that ends here; ``name`` starts."""
+        now = time.perf_counter()
+        print(f"phase {marks[-1][0]}: {now - marks[-1][1]:.1f} s", flush=True)
+        marks.append((name, now))
 
     # ---- 1. Device and build ----------------------------------------------
     smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -864,6 +1138,7 @@ def main() -> None:
     moving = torch.from_numpy(moving_np).to(dev)
 
     # ---- 2. Kernels against their twins, first iteration's tensors ---------
+    phase("2")
     index = build_index(fixed, params.to(dev), cfg)
     st0 = identity_state(torch.float32, dev)
     alpha = torch.tensor(ALPHA, dtype=torch.float32, device=dev)
@@ -894,6 +1169,7 @@ def main() -> None:
                             fs.bin_point_moments_ref, k3_args, {"weighted": True})
 
     # ---- 2b. Slice-2 kernels against their twins, rendered pair ------------
+    phase("2b")
     la, lb, lb_dirty = _rendered_pair()
     fa_d, lb_d, dirty_d = la.to(dev), lb.to(dev), lb_dirty.to(dev)
     cfg_p = ICPConfig(objective=Objective.PLANE, estimate_scale=False)
@@ -989,6 +1265,7 @@ def main() -> None:
             fs.bin_point_moments_ref, a, kw))
 
     # ---- 2c. Slices 3-4: K1′, K5 and K6 against their twins ----------------
+    phase("2c")
     # (K1′ is held against its twin and K1 with K1, in _check_rep_assign.)
 
     cfg_u = ICPConfig(fused_point=False)
@@ -1104,6 +1381,7 @@ def main() -> None:
           f"re-scored (eps -inf)", flush=True)
 
     # ---- 2d. K2 at the 16x layout (the windowed TPU variant's shape) ---------
+    phase("2d")
     m16, n_r16, cap16 = 262144, 2048, 256
     f16_np, m16_np = _synthetic_pair(m16, seed=0)
     f16, mv16 = torch.from_numpy(f16_np).to(dev), torch.from_numpy(m16_np).to(dev)
@@ -1126,6 +1404,7 @@ def main() -> None:
     del f16
 
     # ---- 2e. Slice 5: K9 and K8 at the LiDAR shape ---------------------------
+    phase("2e")
     wf_np, wm_np, q_l, t_l = wavy_surface_pair(M_L)
     wf, wm = torch.from_numpy(wf_np).to(dev), torch.from_numpy(wm_np).to(dev)
     # K9's and K8's arguments as the estimator hands them, from one call.
@@ -1186,6 +1465,7 @@ def main() -> None:
         k8_err = max(k8_err, _check_k8(km, f"adversarial {name}", a, {"k": k})[0])
 
     # ---- 2f. K1, K7 and K3 at the 16x shape, as the steps hand them --------
+    phase("2f")
     # The LiDAR PLANE step runs K1 (n_r 2048) and K7 plane (cq 192, cb 256);
     # the 16x POINT step runs K3 at the same layout.
     cfg_lidar = ICPConfig(m=M_L, n_r=N_R_L, estimate_scale=False,
@@ -1215,6 +1495,7 @@ def main() -> None:
             f"{name} 16x (mg {tuple(a[0].shape)}, cb {cb}, {kw})", kernel, twin, a, kw))
 
     # ---- 3. The slice: three flagship registrations ------------------------
+    phase("3")
     counters = {"rep_assign_counts": fs.rep_assign_counts,
                 "rep_assign": fs.rep_assign,
                 "bin_table": tb.bin_table,
@@ -1284,6 +1565,7 @@ def main() -> None:
         raise AssertionError("card and CPU registrations disagree")
 
     # ---- 3b. Slice 2: the bench gates on the rendered pair -----------------
+    phase("3b")
     gates = {
         "plane": (ICPConfig(objective=Objective.PLANE, estimate_scale=False), lb_d),
         "plane_sym": (ICPConfig(objective=Objective.PLANE, plane_symmetric=True,
@@ -1334,6 +1616,7 @@ def main() -> None:
         raise AssertionError("PLANE card and CPU registrations disagree")
 
     # ---- 3c. Slices 3-4: BRUTE and the unfused pipeline --------------------
+    phase("3c")
     for seed in (0, 1, 2):
         f_np, m_np = _synthetic_pair(M, seed=seed)
         st, wall, ran = drive(torch.from_numpy(f_np).to(dev),
@@ -1401,6 +1684,7 @@ def main() -> None:
     require_launched(ran, ("rep_assign", "bin_table", "bin_point_moments"), 1, "two-phase")
 
     # ---- 3d. Slice 5: the LiDAR gate and the scaled-shape gates -------------
+    phase("3d")
     f_g, m_g, q_g, t_g = wavy_surface_pair(M)
     f_4x, m_4x, q_4x, t_4x = wavy_surface_pair(65536)
     f_4x, m_4x = torch.from_numpy(f_4x).to(dev), torch.from_numpy(m_4x).to(dev)
@@ -1454,6 +1738,7 @@ def main() -> None:
         raise AssertionError("kNN normals on the card and the CPU disagree")
 
     # ---- 3e. Slice 6: the batch, the pyramid and the app pipelines --------
+    phase("3e")
     from icp_tpu_torch.icp.pipeline import ICPRegistration, ICPStepByStep
     from icp_tpu_torch.icp.pyramid import register_pyramid
     from icp_tpu_torch.ops.sampling import get_landmarks
@@ -1592,12 +1877,21 @@ def main() -> None:
                      "POINT + HUBER at n_r 8")
 
     # ---- 3f. Slice 7: the odometry front end ----------------------------------
-    odometry_phase(dev, smi, drive_call, require_launched)
+    phase("3f")
+    arcs, arc_frames, circle, circle_frames = render_sequences()
+    odometry_phase(dev, smi, drive_call, require_launched, arcs, arc_frames)
+    del arc_frames
+
+    # ---- 3g. Slice 8: the SLAM back end -----------------------------------------
+    phase("3g")
+    slam_phase(dev, smi, drive_call, require_launched, circle, circle_frames)
+    del circle_frames
 
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"{name} never launched on the main path")
 
+    phase("3 card vs CPU, fused vs unfused")
     # Card against the CPU twins: BRUTE POINT on 4096 landmarks (the CPU
     # twin of K6 sweeps m x m per step), unfused PLANE at full size.
     f_np, m_np = _synthetic_pair(4096, seed=0)
@@ -1644,6 +1938,7 @@ def main() -> None:
             raise AssertionError(f"fused and unfused {name} steps disagree")
 
     # ---- 4. Times (printed, not gated) ------------------------------------
+    phase("4")
     fast = ICPParams(alpha=ALPHA, angle_threshold_deg=0.0,
                      translation_threshold=0.0)
 
@@ -1675,6 +1970,7 @@ def main() -> None:
               f"alternating rounds)", flush=True)
 
     # ---- 4c. Slices 3-4: BRUTE POINT and unfused PLANE, and their kernels ---
+    phase("4c")
     for name, (f_t, m_t, config) in {
             "BRUTE POINT (synthetic pair)": (fixed, moving, cfg_b),
             "unfused PLANE (rendered pair)": (fa_d, lb_d, cfg_pu)}.items():
@@ -1684,6 +1980,7 @@ def main() -> None:
               flush=True)
 
     # ---- 4d. Slice 5: the LiDAR cells and the scaled POINT cells -------------
+    phase("4d")
     for name, (f_t, m_t, config) in {
             "LiDAR PLANE, normal_mode knn": (wf, wm, cfg_lidar),
             "POINT 4x": (f_4x, m_4x, scale_gates["icp_4x"][4]),
@@ -1836,6 +2133,7 @@ def main() -> None:
                     if m.split(".")[0] in ("jax", "jaxlib", "icp_tpu", "PIL", "matplotlib"))
     if banned:
         raise AssertionError(f"imported {banned}")
+    phase("end")
     print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,7 +19,9 @@ cloud IO, the TUM RGB-D format, the native frame stream), the runtime
 (configuration, timing, metrics, the native host library) and the odometry
 front end (``slam.se3``; ``slam.odometry.run_odometry`` and
 ``odometry_chain_device``, which enqueues a whole sequence with no host
-read).
+read), and the SLAM back end (``slam.mapping.SlamEngine`` with loop
+closure, the pose-graph and bundle-adjustment solvers, session
+checkpoints, ``parallel.resilience``'s bounded retries).
 
 Geometry runs in full float32: importing the package disables TF32 for
 matrix products and cuDNN, since TF32 shows up as ~0.5% coordinate error and
@@ -31,6 +33,8 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
+
+__version__ = "0.1.0"
 
 from icp_tpu_torch.runtime.config import (  # noqa: E402
     Correspondence,
@@ -54,6 +58,7 @@ from icp_tpu_torch.rbc.construct import RBCIndex, rbc_construct  # noqa: E402
 from icp_tpu_torch.rbc.search import rbc_search  # noqa: E402
 
 __all__ = [
+    "__version__",
     "BruteTarget",
     "Correspondence",
     "ICPConfig",

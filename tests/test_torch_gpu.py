@@ -1133,3 +1133,91 @@ def test_guided_filter_on_card_matches_cpu(cuda_dev):
     assert torch.equal(dd == 0, depth == 0)
     assert float((dd - dc).abs().max()) <= 1.0
     assert float((gf.filter_rgb(rgb.to(cuda_dev)).cpu() - gf.filter_rgb(rgb)).abs().max()) <= 1e-4
+
+
+def _no_host_read(fn):
+    """``fn()`` with any call that waits for the stream an error."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.parametrize("solver, n", [("optimize", 96), ("optimize_pcg", 600)])
+def test_pose_graph_solvers_read_nothing_and_repeat(cuda_dev, solver, n):
+    """The LM loops enqueue with no host read, repeat bit for bit (no
+    floating-point atomics in the assembly), and land where the CPU lands
+    within tests/test_torch_pose_graph.py's ring tolerances."""
+    from icp_tpu_torch.slam import pose_graph as pg
+
+    fn = getattr(pg, solver)
+    g = pg.demo_ring_graph(n, device=cuda_dev)
+    a = _no_host_read(lambda: fn(g, iterations=10))
+    b = _no_host_read(lambda: fn(g, iterations=10))
+    assert torch.equal(a.q, b.q) and torch.equal(a.t, b.t)
+    c = fn(pg.PoseGraph(*(x.cpu() for x in g)), iterations=10)
+    assert float((a.t.cpu() - c.t).abs().max()) <= 2.0
+    assert float((a.q.cpu() - c.q).abs().max()) <= 5e-3
+    ca, cc = float(pg.graph_cost(a)), float(pg.graph_cost(c))
+    assert abs(ca - cc) <= 1e-2 * cc and ca < 0.05 * float(pg.graph_cost(g))
+
+
+def test_ba_solve_reads_nothing_and_repeats(cuda_dev):
+    """After its host degree check, ba_solve enqueues with no host read,
+    repeats bit for bit and lands where the CPU lands (within 1e-3 mm)."""
+    from icp_tpu_torch.slam import bundle_adjustment as ba
+
+    prob = ba.demo_problem(32, 4096, 8, device=cuda_dev)
+    assert ba.check_max_degree(prob.obs_point, 4096, 8) <= 8
+    a = _no_host_read(lambda: ba._ba_solve(prob, 5, 8, 1e-4, True))
+    b = _no_host_read(lambda: ba._ba_solve(prob, 5, 8, 1e-4, True))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    c = ba.ba_solve(ba.BAProblem(*(x.cpu() for x in prob)), 5)
+    assert float((a.pose_t.cpu() - c.pose_t).abs().max()) <= 1e-3
+    assert float((a.points.cpu() - c.points).abs().max()) <= 1e-3
+    assert float(ba.ba_cost(a)) < 0.01 * float(ba.ba_cost(prob))
+
+
+def test_slam_engine_on_card_matches_cpu(cuda_dev):
+    """A 5-frame there-and-back loop (every frame a keyframe; the loop
+    closes at the start) on the card and on the CPU: the same keyframes,
+    edges and closures, poses within the slice tolerances composed along
+    the chain (0.05 mm, 1e-5), and after optimize_map within 1 mm and
+    2e-2 in q (tests/test_torch_slam_engine.py)."""
+    from icp_tpu_torch import ICPConfig, ICPParams
+    from icp_tpu_torch.icp.pyramid import subsample_grid
+    from icp_tpu_torch.sensors import synthetic
+    from icp_tpu_torch.slam.mapping import LoopClosureConfig, SlamEngine
+    from icp_tpu_torch.slam.odometry import KeyframePolicy, frame_to_landmarks
+
+    scene = synthetic.default_scene(device="cpu")
+    lms = []
+    for i in range(5):
+        back = 1.0 - abs(2 * i / 4 - 1.0)
+        q = torch.tensor([0.0, np.sin(0.005 * back), 0.0, np.cos(0.005 * back)],
+                         dtype=torch.float32)
+        pose = synthetic.CameraPose(q, torch.tensor([40.0 * back, 0.0, 25.0 * back]))
+        lms.append(subsample_grid(frame_to_landmarks(synthetic.render_cloud(scene, pose)), 2))
+
+    def run(dev):
+        eng = SlamEngine(ICPParams(alpha=2e2),
+                         ICPConfig(m=4096, n_r=64, estimate_scale=False, max_iterations=40),
+                         policy=KeyframePolicy(max_gap=1),
+                         loop_config=LoopClosureConfig(min_gap=3, max_distance=100.0))
+        for f in lms:
+            eng.process_frame(f.to(dev))
+        before = [(p.q.cpu(), p.t.cpu()) for p in eng.trajectory]
+        eng.optimize_map(iterations=5)
+        return eng, before
+
+    (eg, bg), (ec, bc) = run(cuda_dev), run("cpu")
+    assert eg.map.edges == ec.map.edges and eg.map.loop_closures == ec.map.loop_closures
+    assert len(eg.map.loop_closures) >= 1
+    for (qg, tg), (qc, tc) in zip(bg, bc):
+        assert float((tg - tc).abs().max()) <= 0.05 and float((qg - qc).abs().max()) <= 1e-5
+    for kg, kc in zip(eg.map.keyframes, ec.map.keyframes):
+        assert kg.pose.t.device.type == "cuda"
+        assert float((kg.pose.t.cpu() - kc.pose.t).abs().max()) <= 1.0
+        assert float((kg.pose.q.cpu().abs() - kc.pose.q.abs()).abs().max()) <= 2e-2

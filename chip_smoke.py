@@ -189,6 +189,27 @@ engine) adds, at full width:
     mode after its host degree check, bitwise equal, its cost falling
     100-fold. Each phase's seconds are printed.
 
+Slice 9 (parallel/ on torch.distributed) adds:
+
+3h. The sharded paths at the flagship width (sharded_phase): this process
+    builds the kernels, then make_sharded_register in a world of 1 on NCCL
+    here (POINT on synthetic_pair, PLANE and GICP on the rendered gate
+    pair) and in worlds of 2 and 4 ranks (meshes (2, 1), (1, 2), (2, 2))
+    launched through icp_tpu_torch.parallel.dryrun, whose ranks share the
+    one card on gloo and only load the built library: POINT, PLANE, GICP,
+    robust-adaptive PLANE (12 % outliers) and BRUTE POINT, each within its
+    gate and within the JAX tests' sharded-vs-single bars of register on
+    the card, every rank bitwise rank 0's, K2 launched with K3 or K5 at
+    least k times on every rank; in the (2, 1) world the sharded dense LM
+    on 3g's slam graph and the sharded PCG on the 600-node ring within
+    1e-4 of the single-device cost and 1 mm of its ATE, and the sharded
+    BA (32 cameras, 4096 points) within 5e-2 of ba_solve. With two or more
+    cards the (2, 1) world also runs on NCCL across them, and (2, 2) with
+    four. The ranks' launches count on the main path. In the world of 1,
+    K2 (over n_r_local + 1 bins, the parking bin included), K3 and K5 are
+    held against their twins on what one sharded step hands them at every
+    rank's shapes of the meshes (1, 1), (1, 2) and (2, 1).
+
 The line before the last is {"kernels": [...]}: per kernel its launches on
 the main path, its largest error against the twin over every shape checked
 (and, for K1, K1′, K2, K3 and K7, max_abs_err_16x at the 16x shape apart), its
@@ -883,10 +904,11 @@ def _no_host_read(fn):
     return out, time.perf_counter() - t0
 
 
-def slam_phase(dev, smi, drive_call, require_launched, circle, circle_lms) -> None:
+def slam_phase(dev, smi, drive_call, require_launched, circle, circle_lms):
     """Phase 3g: the SLAM back end and the bench's wall, pyramid and slam
     gates at full width (640 x 480 frames, m 16384, n_r 256). Raises on any
-    failed check."""
+    failed check. Returns the slam gate's pose graph (before the backend
+    moved it) and its ground-truth node positions relative to node 0."""
     from icp_tpu_torch import ICPConfig, ICPParams, Objective, register
     from icp_tpu_torch.icp.pyramid import register_pyramid
     from icp_tpu_torch.icp.quaternion import qangle_deg, qconj, qmul
@@ -1012,9 +1034,10 @@ def slam_phase(dev, smi, drive_call, require_launched, circle, circle_lms) -> No
     # solves part along it by mm and degrees at one cost: there the cost
     # is held within 1e-4 and the ATE to the ground truth within 1 mm, and
     # the per-pose differences are printed.
+    graph_gt = ts_gt[[kf.index for kf in kfs]] - ts_gt[0]
+
     def graph_ate(x):
-        gt = ts_gt[[kf.index for kf in kfs]] - ts_gt[0]
-        return float(np.sqrt(np.mean(np.sum((x.t.cpu().numpy() - gt) ** 2, 1))))
+        return _ate(x.t, graph_gt)
 
     graph_cpu = pg.PoseGraph(*(x.cpu() for x in graph))
     ring = pg.demo_ring_graph(600, device=dev)  # 12 closures spanning 24 nodes
@@ -1079,6 +1102,334 @@ def slam_phase(dev, smi, drive_call, require_launched, circle, circle_lms) -> No
           f"{c1}", flush=True)
     if not (same and c1 < 0.01 * c0):
         raise AssertionError("ba_solve: not repeatable, or the cost did not fall")
+    return graph, graph_gt
+
+
+def _ate(t, gt) -> float:
+    """RMS position error (mm) of the nodes ``t`` against ``gt``."""
+    return float(np.sqrt(np.mean(np.sum((t.double().cpu().numpy() - gt) ** 2, 1))))
+
+
+class _RankStandIn:
+    """One rank of an (n_dp, n_mp) mesh, emulated in this process for the
+    kernel checks: its coordinates, shape and device; its collectives return
+    their input (the checks read what the kernels take and give, not the
+    step's result)."""
+
+    def __init__(self, n_dp: int, n_mp: int, dp: int, mp: int, device):
+        self.shape = {"dp": n_dp, "mp": n_mp}
+        self.dp_index, self.mp_index, self.device = dp, mp, device
+
+    def size(self, axis_name) -> int:
+        return 1
+
+    def psum(self, x, axis_name):
+        return x
+
+    pmin = pmax = psum
+
+
+def _sharded_kernel_checks(dev, mesh, variants, params) -> dict:
+    """K2, K3 and K5 against their twins on what one sharded step hands
+    them (the identity state), at every rank's shapes of the meshes (1, 1),
+    (1, 2) and (2, 1): K2 over n_r_local + 1 bins, the parking bin included
+    (257 bins at the single-device capacity, 129, and 257 at the halved dp
+    capacity); K3 for POINT, K5 for PLANE, GICP and robust-adaptive PLANE.
+    K2 and K5 bitwise, K3 within 1e-4 of max|P| and repeating bitwise.
+
+    The (1, 1) step runs on ``mesh``, this process's world of 1. The ranks
+    of (1, 2) and (2, 1) are emulated here (:class:`_RankStandIn`), their
+    phase 1 taken as the nearest of all the representatives with the
+    lowest id on a tie, which is what the two pmins of
+    ``sharded._phase1_owned_bins`` give. Returns max|d| per kernel."""
+    from icp_tpu_torch.icp.state import identity_state
+    from icp_tpu_torch.kernels import bin_search as bs
+    from icp_tpu_torch.kernels import fused_step as fs
+    from icp_tpu_torch.ops.distance import pairwise_sq_dists
+    from icp_tpu_torch.parallel import sharded
+    from icp_tpu_torch.rbc import grouping
+    from icp_tpu_torch.rbc import search as search_mod
+
+    def owned_bins(index):
+        def phase1(local, tm, prm, n_r_local, rank):
+            rid = torch.argmin(pairwise_sq_dists(tm, index.reps, prm.alpha), dim=1)
+            rid = rid.to(torch.int32) - rank.mp_index * n_r_local
+            return torch.where((rid >= 0) & (rid < n_r_local), rid,
+                               torch.full_like(rid, n_r_local))
+        return phase1
+
+    spied = ((grouping, "bin_table"), (sharded, "bin_point_moments"),
+             (search_mod, "bin_search"))
+    errs = {"bin_table": 0.0, "bin_point_moments": 0.0, "bin_search": 0.0}
+    ranks = [((1, 1), 0, 0, mesh)] + [
+        (shape, dp, mp, _RankStandIn(*shape, dp, mp, dev))
+        for shape in ((1, 2), (2, 1)) for dp in range(shape[0]) for mp in range(shape[1])]
+    prm = params.to(dev)
+    for (n_dp, n_mp), dp, mp, rank in ranks:
+        for name in ("point", "plane", "gicp", "robust"):
+            config, f, m = variants[name][:3]
+            n_r_local = config.n_r // n_mp
+            cap = sharded.sharded_query_capacity(config, n_dp)
+            index, mov, mnorm = sharded.sharded_inputs(f, m, prm, config, rank)
+            seen = {attr: [] for _, attr in spied}
+            origs = [(mod, attr, getattr(mod, attr)) for mod, attr in spied]
+
+            def spy(attr, orig):
+                def wrapped(*args, **kwargs):
+                    seen[attr].append((args, kwargs))
+                    return orig(*args, **kwargs)
+                return wrapped
+
+            for mod, attr, orig in origs:
+                setattr(mod, attr, spy(attr, orig))
+            phase1 = sharded._phase1_owned_bins
+            if rank is not mesh:
+                sharded._phase1_owned_bins = owned_bins(index)
+            try:
+                sharded.sharded_icp_step(identity_state(torch.float32, dev), mov, index, prm,
+                                         config, n_r_local, cap, rank, mnormals_local=mnorm)
+            finally:
+                sharded._phase1_owned_bins = phase1
+                for mod, attr, orig in origs:
+                    setattr(mod, attr, orig)
+            torch.cuda.synchronize()
+            what = f"sharded {name} mesh ({n_dp}, {n_mp}) rank ({dp}, {mp})"
+            kernel = "bin_point_moments" if name == "point" else "bin_search"
+            if len(seen["bin_table"]) != 1 or len(seen[kernel]) != 1:
+                raise AssertionError(f"{what}: {len(seen['bin_table'])} K2 and "
+                                     f"{len(seen[kernel])} {kernel} calls, expected 1 each")
+            (a, kw), = seen["bin_table"]
+            starts, n_rows = a[1], kw["order"].numel()
+            if starts.numel() != n_r_local + 1 or kw["capacity"] != cap:
+                raise AssertionError(f"{what}: K2 over {starts.numel()} bins of capacity "
+                                     f"{kw['capacity']}, expected {n_r_local + 1} of {cap}")
+            errs["bin_table"] = max(errs["bin_table"], _check_k2(
+                f"{what} ({n_rows - int(starts[-1])} of {n_rows} queries parked)", a, kw))
+            (a, kw), = seen[kernel]
+            if kernel == "bin_point_moments":
+                errs[kernel] = max(errs[kernel], _check_moments(
+                    f"K3 {what} (cq {cap})", fs.bin_point_moments, fs.bin_point_moments_ref,
+                    a, kw))
+            else:
+                best_k, matched_k = bs.bin_search(*a)
+                best_t, matched_t = bs.bin_search_ref(*a)
+                torch.cuda.synchronize()
+                ok = _bitwise(best_k, best_t) and _bitwise(matched_k, matched_t)
+                errs[kernel] = max(errs[kernel], _finite_err(best_k, best_t),
+                                   _finite_err(matched_k, matched_t))
+                print(f"K5 bin_search {what}: qg_w {tuple(a[0].shape)}, payload "
+                      f"{tuple(a[3].shape)}; scores and payloads bitwise: {ok}", flush=True)
+                if not ok:
+                    raise AssertionError(f"K5 {what} differs from its twin")
+    print(f"phase 3h kernels against their twins at the sharded shapes: max|d| {errs}",
+          flush=True)
+    return errs
+
+
+def sharded_phase(dev, smi, drive_call, require_launched, launches, slam_graph,
+                  slam_gt) -> None:
+    """Phase 3h: slice 9, the sharded paths (``icp_tpu_torch.parallel``) at
+    the flagship width, as ``__graft_entry__.dryrun_multichip`` runs them:
+    POINT on the synthetic pair, PLANE, GICP and robust-adaptive PLANE on
+    the rendered gate pair (the robust one with its 12 % outliers), BRUTE
+    POINT on the synthetic pair. Each within its gate and, within the JAX
+    tests' sharded-vs-single bars, at ``register``'s state on the card.
+
+    A world of 1 runs in this process on NCCL. Worlds of 2 and 4 ranks
+    share the one card: NCCL refuses two ranks on one GPU, so their group
+    is gloo, which reduces the CUDA tensors itself; the kernels and the
+    math stay on the card. Their ranks are processes of
+    ``icp_tpu_torch.parallel.dryrun``, which load the library this process
+    built and never compile. Every rank must end bitwise equal to rank 0.
+    The (2, 1) world also runs the sharded pose-graph solvers (the slam
+    gate's graph, dense; the 600-node ring, PCG) and the sharded BA, against
+    the single-device solvers on the card. With two or more cards the (2,
+    1) world also runs on NCCL across cards (and (2, 2) with four).
+    In the world of 1, :func:`_sharded_kernel_checks` holds K2, K3 and K5
+    against their twins at every rank's shapes of (1, 1), (1, 2) and (2, 1).
+    Raises on any failed check, a failed rank or a missed deadline.
+    Returns the kernels' max|d| from those checks."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from icp_tpu_torch import (Correspondence, ICPConfig, ICPParams, Objective,
+                               RobustKernel, Weighting, register)
+    from icp_tpu_torch.icp.quaternion import qangle_deg, qconj, qmul
+    from icp_tpu_torch.kernels import native
+    from icp_tpu_torch.parallel import initialize_multihost, make_mesh, make_sharded_register
+    from icp_tpu_torch.parallel.dryrun import ba_shards, free_port, launch_world
+    from icp_tpu_torch.sensors.synthetic import synthetic_pair
+    from icp_tpu_torch.slam import bundle_adjustment as ba
+    from icp_tpu_torch.slam import pose_graph as pg
+
+    card = f"{torch.cuda.get_device_name(0)} ({smi})"
+    t_phase = time.perf_counter()
+    native.load_library()  # built here, before any rank starts: the ranks only load it
+    params = ICPParams(alpha=ALPHA)
+    f_np, m_np = synthetic_pair(M, seed=0)
+    fixed, moving = torch.from_numpy(f_np), torch.from_numpy(m_np)
+    la, lb, dirty = _rendered_pair()
+    point_gate, gate = (0.05, 0.005), (T_GATE, A_GATE)
+    synth, rendered = (Q_GT, T_GT), (Q_GT_R, T_GT_R)
+    # name: (config, fixed, moving, gate, ground truth, vs-register bars (mm,
+    # deg; tests/test_sharded.py), kernels launched at least k times)
+    variants = {
+        "point": (ICPConfig(), fixed, moving, point_gate, synth, (0.1, 5e-3),
+                  ("bin_table", "bin_point_moments")),
+        "plane": (ICPConfig(objective=Objective.PLANE, estimate_scale=False), la, lb, gate,
+                  rendered, (0.3, 0.02), ("bin_table", "bin_search")),
+        "gicp": (ICPConfig(objective=Objective.GICP, estimate_scale=False), la, lb, gate,
+                 rendered, (0.3, 0.02), ("bin_table", "bin_search")),
+        "robust": (ICPConfig(objective=Objective.PLANE, weighting=Weighting.REGULAR,
+                             robust=RobustKernel.TRIMMED, robust_adaptive=True,
+                             estimate_scale=False), la, dirty, gate, rendered, (0.3, 0.02),
+                   ("bin_table", "bin_search")),
+        "brute": (ICPConfig(correspondence=Correspondence.BRUTE), fixed, moving, point_gate,
+                  synth, (0.1, 5e-3), ()),
+    }
+    single = {}  # name: (register's state on the card, its wall on the second call)
+    for name, (config, f, m, *_) in variants.items():
+        for _ in range(2):
+            t0 = time.perf_counter()
+            st = register(f.to(dev), m.to(dev), params, config)
+            torch.cuda.synchronize()
+            single[name] = (st, time.perf_counter() - t0)
+
+    def check(name, st, wall, ran, where):
+        config, _, _, (t_gate, a_gate), (q_gt, t_gt), (t_bar, a_bar), kernels = variants[name]
+        ref, ref_wall = single[name]
+        k = int(st.k)
+        t_err, a_err = _errors(st, q_gt, t_gt)
+        dt = float(np.linalg.norm(st.t.double().cpu().numpy() - ref.t.double().cpu().numpy()))
+        da = float(qangle_deg(qmul(st.q.cpu(), qconj(ref.q.cpu()))))
+        print(f"sharded {name} {where}: k={k} (register {int(ref.k)}) t_err={t_err:.6f} mm "
+              f"a_err={a_err:.7f} deg (gate {t_gate} mm, {a_gate} deg); vs register |dt|="
+              f"{dt:.6f} mm dangle={da:.7f} deg (bars {t_bar} mm, {a_bar} deg); wall "
+              f"{wall:.3f} s (register {ref_wall:.3f} s); launches={ran}", flush=True)
+        if not (1 <= k < config.max_iterations and t_err < t_gate and a_err < a_gate):
+            raise AssertionError(f"sharded {name} {where}: off the ground truth")
+        if not (dt < t_bar and da < a_bar):
+            raise AssertionError(f"sharded {name} {where}: off register's state")
+        require_launched(ran, ("bin_table",), 1, f"sharded {name} {where}")
+        require_launched(ran, kernels, k, f"sharded {name} {where}")
+
+    sharded_launches = {}  # every rank's launches on the sharded path, summed
+    # A world of 1 on NCCL, in this process: its launches count on the main path.
+    initialize_multihost(f"localhost:{free_port()}", 1, 0, backend="nccl", timeout_s=60)
+    try:
+        mesh = make_mesh(1, 1, dev)
+        for name in ("point", "plane", "gicp"):
+            config, f, m = variants[name][:3]
+            run = make_sharded_register(mesh, config)
+            st, wall, ran = drive_call(lambda: run(f.to(dev), m.to(dev), params))
+            check(name, st, wall, ran, "mesh (1, 1), NCCL")
+            for k, n in ran.items():
+                sharded_launches[k] = sharded_launches.get(k, 0) + n
+        errs = _sharded_kernel_checks(dev, mesh, variants, params)
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 3h world of 1: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # The solvers' single-device references on the card, and the ring's
+    # ground truth (demo_ring_graph: a 400 mm circle, node 0 at the origin).
+    ring = pg.demo_ring_graph(600, device="cpu")
+    ring_gt = np.stack([[400.0 * np.cos(2 * np.pi * i / 600), 0.0,
+                         400.0 * np.sin(2 * np.pi * i / 600)] for i in range(600)])
+    ring_gt = ring_gt - ring_gt[0]
+    solver_cases = {
+        "optimize": (slam_graph, slam_gt, pg.optimize),
+        "optimize_pcg": (ring, ring_gt, pg.optimize_pcg),
+    }
+    solver_refs = {name: fn(pg.PoseGraph(*(x.to(dev) for x in g)), iterations=10)
+                   for name, (g, _, fn) in solver_cases.items()}
+    prob = ba.demo_problem(32, 4096, 8, device="cpu")
+    ba_ref = ba.ba_solve(prob.__class__(*(x.to(dev) for x in prob)), 5, 8)
+
+    def job(mesh_shape, solvers):
+        # A first, unchecked POINT registration takes each rank's first-call
+        # costs (CUDA context, library load, solver handles) off the walls.
+        tasks = [dict(kind="register", name=name, config=config, params=params,
+                      fixed=f, moving=m)
+                 for name, (config, f, m, *_) in [("warm-up", variants["point"]),
+                                                  *variants.items()]]
+        if solvers:
+            tasks += [dict(kind=name, name=name,
+                           graph=pg.pad_edges(pg.PoseGraph(*(x.cpu() for x in g)), 2),
+                           kwargs={"iterations": 10})
+                      for name, (g, _, _) in solver_cases.items()]
+            tasks.append(dict(kind="ba", name="ba", problem=ba_shards(prob, 2, 8), n_cams=32,
+                              kwargs={"iterations": 5, "max_degree": 8}))
+        return {"mesh": mesh_shape, "device": "cuda", "tasks": tasks}
+
+    worlds = [((2, 1), "gloo", True), ((1, 2), "gloo", False), ((2, 2), "gloo", False)]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        worlds.append(((2, 1), "nccl", False))
+    if n_cards >= 4:
+        worlds.append(((2, 2), "nccl", False))
+    else:
+        print(f"{n_cards} card(s): the NCCL worlds across cards wait for a machine with "
+              "two or more", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        for mesh_shape, backend, solvers in worlds:
+            t0 = time.perf_counter()
+            world = mesh_shape[0] * mesh_shape[1]
+            where = (f"mesh {mesh_shape}, {backend}, "
+                     + ("ranks sharing one card" if n_cards == 1 else "one card a rank"))
+            results = launch_world(job(mesh_shape, solvers), world,
+                                   f"{tmp}/{mesh_shape[0]}x{mesh_shape[1]}{backend}",
+                                   backend=backend, timeout=180.0, init_timeout=60.0)
+            for task, res0 in results[0]["tasks"].items():
+                for r in results[1:]:
+                    out = r["tasks"][task]["out"]
+                    if not all(torch.equal(out[k], v) for k, v in res0["out"].items()):
+                        raise AssertionError(f"{where}: rank {r['rank']}'s {task} differs "
+                                             "from rank 0's")
+                for name in res0["launches"]:
+                    n = sum(r["tasks"][task]["launches"][name] for r in results)
+                    launches[name] += n
+                    sharded_launches[name] = sharded_launches.get(name, 0) + n
+                per_rank = [{k: v for k, v in r["tasks"][task]["launches"].items() if v}
+                            for r in results]
+                if task == "warm-up":
+                    continue
+                if task in variants:
+                    out = res0["out"]
+                    st = type(single[task][0])(**{k: out[k] for k in
+                                                  ("q", "t", "s", "qk", "tk", "sk", "k")})
+                    check(task, st, max(r["tasks"][task]["wall"] for r in results),
+                          res0["launches"], where)
+                    print(f"  {task} launches per rank: {per_rank}; every rank bitwise "
+                          "rank 0's", flush=True)
+                elif task == "ba":
+                    out = res0["out"]
+                    dt = float((out["pose_t"] - ba_ref.pose_t.cpu()).abs().max())
+                    dp = float((out["points"] - ba_ref.points.cpu()).abs().max())
+                    print(f"sharded BA {where} (32 cameras, 4096 points, 5 iterations): "
+                          f"vs ba_solve max|dt| {dt} mm, max|dp| {dp} mm (bound 5e-2); wall "
+                          f"{res0['wall']:.3f} s; every rank bitwise rank 0's", flush=True)
+                    if not (dt <= 5e-2 and dp <= 5e-2):
+                        raise AssertionError("sharded BA: off ba_solve")
+                else:
+                    g, gt, _ = solver_cases[task]
+                    ref = solver_refs[task]
+                    out = res0["out"]
+                    g_cpu = pg.PoseGraph(*(x.cpu() for x in g))
+                    c = float(pg.graph_cost(g_cpu._replace(q=out["q"], t=out["t"])))
+                    c_ref = float(pg.graph_cost(pg.PoseGraph(*(x.cpu() for x in ref))))
+                    a, a_ref = _ate(out["t"], gt), _ate(ref.t, gt)
+                    print(f"sharded {task} {where} ({g.q.shape[0]} nodes, {g.edge_i.shape[0]} "
+                          f"edges, 10 iterations): cost {c} (single {c_ref}, bound 1e-4 "
+                          f"apart), ATE {a} mm (single {a_ref}, bound 1 mm apart); wall "
+                          f"{res0['wall']:.3f} s; every rank bitwise rank 0's", flush=True)
+                    if not (abs(c - c_ref) <= 1e-4 * c_ref and abs(a - a_ref) <= 1.0):
+                        raise AssertionError(f"sharded {task}: off the single-device solve")
+            print(f"phase 3h {where}: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase 3h launches on the sharded path, every rank: "
+          f"{ {k: n for k, n in sharded_launches.items() if n} }", flush=True)
+    print(f"phase 3h sharded: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return errs
 
 
 def main() -> None:
@@ -1884,8 +2235,17 @@ def main() -> None:
 
     # ---- 3g. Slice 8: the SLAM back end -----------------------------------------
     phase("3g")
-    slam_phase(dev, smi, drive_call, require_launched, circle, circle_frames)
+    slam_graph, slam_gt = slam_phase(dev, smi, drive_call, require_launched, circle,
+                                     circle_frames)
     del circle_frames
+
+    # ---- 3h. Slice 9: the sharded paths -------------------------------------------
+    phase("3h")
+    sharded_errs = sharded_phase(dev, smi, drive_call, require_launched, launches,
+                                 slam_graph, slam_gt)
+    k2_err = max(k2_err, sharded_errs["bin_table"])
+    k3c_err = max(k3c_err, sharded_errs["bin_point_moments"])
+    k5_err = max(k5_err, sharded_errs["bin_search"])
 
     for name, n in launches.items():
         if n == 0:
@@ -2130,7 +2490,8 @@ def main() -> None:
                | extra.get(name, {})
                for name, (src, rep, err) in meta.items()]
     banned = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "jaxlib", "icp_tpu", "PIL", "matplotlib"))
+                    if m.split(".")[0] in ("jax", "jaxlib", "icp_tpu", "__graft_entry__",
+                                           "PIL", "matplotlib"))
     if banned:
         raise AssertionError(f"imported {banned}")
     phase("end")

@@ -21,7 +21,10 @@ front end (``slam.se3``; ``slam.odometry.run_odometry`` and
 ``odometry_chain_device``, which enqueues a whole sequence with no host
 read), and the SLAM back end (``slam.mapping.SlamEngine`` with loop
 closure, the pose-graph and bundle-adjustment solvers, session
-checkpoints, ``parallel.resilience``'s bounded retries).
+checkpoints, ``parallel.resilience``'s bounded retries), and the sharded
+paths of ``parallel`` on ``torch.distributed`` (the registration over a
+(dp, mp) mesh of processes, the sharded medians, pose-graph and BA
+solvers).
 
 Geometry runs in full float32: importing the package disables TF32 for
 matrix products and cuDNN, since TF32 shows up as ~0.5% coordinate error and

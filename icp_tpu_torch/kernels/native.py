@@ -73,6 +73,16 @@ SIGNATURES = {
 }
 
 build_info: dict = {}  # filled by load_library(): path, seconds, log
+_build_allowed = True
+
+
+def forbid_build() -> None:
+    """From now on :func:`load_library` loads a library built earlier or
+    raises; it never compiles. The ranks of a world call this: they load
+    what their launching process built, so no two compilers write into one
+    build directory at once."""
+    global _build_allowed
+    _build_allowed = False
 
 
 def _nvcc() -> str:
@@ -123,7 +133,8 @@ def _build(tmp: Path, lib_path: Path) -> str:
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
-    """Compile (if this source hash was never built) and load the kernels."""
+    """Compile (if this source hash was never built, and building is not
+    forbidden) and load the kernels."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
         digest.update(src.name.encode())
@@ -133,6 +144,9 @@ def load_library() -> ctypes.CDLL:
     t0 = time.perf_counter()
     log = ""
     if not lib_path.exists():
+        if not _build_allowed:
+            raise RuntimeError(f"{lib_path} is not built, and this process may not build "
+                               "it: call load_library() in the launching process first")
         out_dir.mkdir(parents=True, exist_ok=True)
         # Build in a private directory and rename the library into place:
         # concurrent processes never load a half-written one.

@@ -5,7 +5,9 @@ of the unfused pipeline (port of ``icp_tpu.ops.moments``).
 :func:`robust_factor` the IRLS factor of the optional robust kernel (it
 multiplies into the reference weight inside K3, K7 and their twins);
 :func:`adaptive_robust_delta` derives the robust scale from the median
-residual of the current iteration, on the device. :func:`centroids`,
+residual of the current iteration, on the device, and
+:func:`adaptive_robust_delta_sharded` the same scale across the ranks of a
+mesh. :func:`centroids`,
 :func:`deviations` and :func:`s_matrix` are the POINT tail of the unfused
 step (the fused path computes the same sums inside K3).
 """
@@ -73,6 +75,67 @@ def adaptive_robust_delta(d2: torch.Tensor, mask: torch.Tensor | None,
     """Per-iteration robust scale ``K_kind * sqrt(median(d2))`` over the valid
     pairs, floored at 1e-3 so an all-zero residual set keeps its weights."""
     med_r = torch.sqrt(torch.clamp(masked_median(d2, mask), min=0.0))
+    return torch.clamp(_ADAPTIVE_K[kind] * med_r, min=1e-3)
+
+
+def masked_median_sharded(x: torch.Tensor, mask: torch.Tensor | None, axes,
+                          mesh, bins: int = 256) -> torch.Tensor:
+    """Global lower median of ``x`` over ``mask`` across the ranks of
+    ``mesh``'s ``axes``, with two collectives instead of a gather of the
+    residuals:
+
+      1. one ``pmin`` of (local median, -local median) brackets the global
+         median: at least half of every rank's valid mass sits on each side
+         of its local median, so the global median lies in
+         ``[min_r med_r, max_r med_r]``;
+      2. one ``psum`` of the valid count, a ``bins``-bin histogram of the
+         valid values over that interval and the count below it locates the
+         global rank (count - 1) // 2 to within (hi - lo) / bins.
+
+    The histogram is a product with the one-hot bin matrix: its sums are
+    integers, exact in float32 in any order (a float scatter-add on CUDA
+    would sum in atomic order). Exact (the shared value) when every rank's
+    local median agrees; 0 when no rank has a valid element. Every rank
+    returns the same bits.
+    """
+    x = x.reshape(-1)
+    m = (torch.ones(x.shape, dtype=torch.bool, device=x.device) if mask is None
+         else mask.reshape(-1))
+    cnt_l = torch.sum(m.to(x.dtype))
+    med_l = masked_median(x, m)
+    has = cnt_l > 0
+    inf = torch.full_like(med_l, float("inf"))
+    lo_neg_hi = mesh.pmin(torch.stack([torch.where(has, med_l, inf),
+                                       torch.where(has, -med_l, inf)]), axes)
+    lo, hi = lo_neg_hi[0], -lo_neg_hi[1]
+
+    width = torch.clamp(hi - lo, min=0.0)
+    # Bin of every valid element inside [lo, hi] (clipped); the elements
+    # below lo go into the rank offset.
+    scale = torch.where(width > 0, bins / width, torch.zeros_like(width))
+    xi = torch.clamp(((x - lo) * scale).to(torch.int32), 0, bins - 1)
+    in_interval = (m & (x >= lo)).to(x.dtype)
+    one_hot = (xi[:, None] == torch.arange(bins, dtype=torch.int32,
+                                           device=x.device)).to(x.dtype)
+    hist_l = in_interval @ one_hot
+    below_l = torch.sum((m & (x < lo)).to(x.dtype))
+    sums = mesh.psum(torch.cat([cnt_l.reshape(1), below_l.reshape(1), hist_l]), axes)
+    total, below, hist = sums[0].to(torch.int64), sums[1], sums[2:]
+
+    k = torch.clamp(total - 1, min=0) // 2  # 0-based lower-median rank
+    cum = below + torch.cumsum(hist, dim=0)
+    bin_idx = torch.argmax((cum > k.to(x.dtype)).to(torch.int32))  # first covering bin
+    est = lo + (bin_idx.to(x.dtype) + 0.5) * (width / bins)
+    est = torch.where(width > 0, est, lo)  # every local median agrees: exact
+    return torch.where(total > 0, est, torch.zeros_like(est))
+
+
+def adaptive_robust_delta_sharded(d2: torch.Tensor, mask: torch.Tensor | None,
+                                  kind: str, axes, mesh) -> torch.Tensor:
+    """:func:`adaptive_robust_delta` across the ranks of ``mesh``'s ``axes``:
+    the median comes from :func:`masked_median_sharded`, so every rank
+    derives the same robust scale."""
+    med_r = torch.sqrt(torch.clamp(masked_median_sharded(d2, mask, axes, mesh), min=0.0))
     return torch.clamp(_ADAPTIVE_K[kind] * med_r, min=1e-3)
 
 

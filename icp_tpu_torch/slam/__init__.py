@@ -9,6 +9,6 @@ from icp_tpu_torch.slam.odometry import (
     run_odometry,
 )
 from icp_tpu_torch.slam.pose_graph import PoseGraph, graph_from_poses, optimize
-from icp_tpu_torch.slam.bundle_adjustment import BAProblem, ba_solve
+from icp_tpu_torch.slam.bundle_adjustment import BAProblem, ba_solve, make_sharded_ba
 from icp_tpu_torch.slam.mapping import SlamEngine
 from icp_tpu_torch.slam.checkpoint import load_session, save_session

@@ -1,6 +1,5 @@
 """Bundle adjustment with Schur-complement reduction (port of
-``icp_tpu.slam.bundle_adjustment``; the sharded solver comes with
-``icp_tpu_torch.parallel``).
+``icp_tpu.slam.bundle_adjustment``).
 
 Problem: keyframe poses X_k (world_from_camera) and map points p_l observed
 as 3-D camera-frame measurements z_o (RGB-D gives depth, so observations are
@@ -37,6 +36,7 @@ from torch.func import jacfwd, vmap
 
 from icp_tpu_torch.rbc.grouping import group_by_bin
 from icp_tpu_torch.slam import se3
+from icp_tpu_torch.slam.pose_graph import one_device_psum
 
 
 class BAProblem(NamedTuple):
@@ -173,7 +173,9 @@ def ba_solve(problem: BAProblem, iterations: int = 5, max_degree: int = 8,
 
 
 def _ba_solve(problem: BAProblem, iterations: int, max_degree: int,
-                   damping: float, fix_first: bool) -> BAProblem:
+              damping: float, fix_first: bool, psum=one_device_psum) -> BAProblem:
+    """The GN loop; ``psum`` sums the Schur system over the ranks that hold
+    the other landmarks (the identity on one device)."""
     n = problem.pose_q.shape[0]
     dev, dtype = problem.pose_t.device, problem.pose_t.dtype
     anchor = torch.where(torch.arange(6 * n, device=dev) < 6, 1e12, 0.0).to(dtype)
@@ -183,6 +185,7 @@ def _ba_solve(problem: BAProblem, iterations: int, max_degree: int,
     for _ in range(iterations):
         r0, A, B, w = _linearize(prob)
         S, rhs, Hll_inv, bp, Cg, cam_g = _schur_system(prob, r0, A, B, w, g, damping)
+        S, rhs = psum((S, rhs))
         if fix_first:
             S = S + torch.diag(anchor)
         S = S + damping * torch.eye(6 * n, dtype=dtype, device=dev)
@@ -197,6 +200,55 @@ def _ba_solve(problem: BAProblem, iterations: int, max_degree: int,
         prob = prob._replace(pose_q=new_pose.q, pose_t=new_pose.t,
                              points=prob.points + dp)
     return prob
+
+
+def make_sharded_ba(mesh, n_cams: int, iterations: int = 5,
+                    max_degree: int = 8, damping: float = 1e-4,
+                    fix_first: bool = True):
+    """Distributed BA: the landmarks and their observations split over the
+    mesh's ``dp`` ranks, the poses replicated.
+
+    Sharding contract (the JAX package's): the problem's points and its
+    observations are the dp blocks laid end to end, block r holding the
+    r-th points and ALL their observations, with ``obs_point`` indices
+    LOCAL to the block; both split evenly over dp. Every rank calls the
+    returned ``run(problem) -> BAProblem`` with the whole problem and takes
+    its block.
+
+    Each GN step a rank builds its landmarks' Schur partials S_local =
+    Hcc_local - W Hll^-1 W^T and rhs_local, ONE psum over dp combines them,
+    the dense (6N)^2 camera solve is replicated and the landmarks are
+    back-substituted on their rank. The updated points come back whole on
+    every rank (one psum of the zero-padded blocks at the end).
+
+    Capacity contract: check each block with :func:`check_max_degree`
+    first; overflowing observations are dropped from the Schur terms.
+    """
+    from icp_tpu_torch.parallel.mesh import DP_AXIS, psum_pytree
+
+    n_dp = mesh.shape[DP_AXIS]
+
+    def run(problem: BAProblem) -> BAProblem:
+        L, O = problem.points.shape[0], problem.obs_cam.shape[0]
+        if L % n_dp or O % n_dp:
+            raise ValueError(f"{L} points and {O} observations must divide evenly "
+                             f"over dp={n_dp}")
+        if problem.pose_q.shape[0] != n_cams:
+            raise ValueError(f"{problem.pose_q.shape[0]} poses, expected n_cams={n_cams}")
+        lp, lo = L // n_dp, O // n_dp
+        d = mesh.dp_index
+        dev = mesh.device
+        local = BAProblem(problem.pose_q.to(dev), problem.pose_t.to(dev),
+                          problem.points[d * lp:(d + 1) * lp].to(dev),
+                          *(x[d * lo:(d + 1) * lo].to(dev) for x in problem[3:]))
+        out = _ba_solve(local, iterations, max_degree, damping, fix_first,
+                        psum=lambda tree: psum_pytree(tree, DP_AXIS, mesh))
+        points = out.points.new_zeros((n_dp, lp, 3))
+        points[d] = out.points
+        points = mesh.psum(points, DP_AXIS).reshape(L, 3)
+        return BAProblem(out.pose_q, out.pose_t, points, *(x.to(dev) for x in problem[3:]))
+
+    return run
 
 
 def demo_problem(n_cams: int = 32, n_points: int = 4096, max_degree: int = 8,

@@ -1,6 +1,5 @@
 """Pose-graph optimization, Levenberg-Marquardt on SE(3) (port of
-``icp_tpu.slam.pose_graph``; the sharded solvers come with
-``icp_tpu_torch.parallel``).
+``icp_tpu.slam.pose_graph``).
 
 Graph: nodes are keyframe poses, edges relative-pose measurements (the
 odometry chain and the loop closures, both from ICP). Residual of an edge
@@ -32,6 +31,12 @@ incidence matrices (one 1.0 per row): the dense system is A^T W A of the
 Hv products are incidence^T times per-edge terms. Matrix products and
 reductions are deterministic, so both optimizers repeat bit for bit. The
 incidence matrices take O(E N) memory.
+
+The sharded solvers (:func:`make_sharded_optimize`,
+:func:`make_sharded_optimize_pcg`) split the EDGES over a mesh's ``dp``
+ranks and keep the poses replicated: each rank sums its edges' partials
+with the same incidence products, one all-reduce a step combines them, and
+every rank runs the same solve on the same bits.
 """
 
 from __future__ import annotations
@@ -233,19 +238,33 @@ def optimize(graph: PoseGraph, iterations: int = 10,
     lowers the finite total cost. ``damping`` is the initial
     dimensionless lambda. Runs ``iterations`` iterations with no host read.
     """
-    n = graph.q.shape[0]
+    q, t = _lm_dense(graph, graph.q.shape[0], iterations, damping, fix_first)
+    return graph._replace(q=q, t=t)
+
+
+def one_device_psum(tree):
+    """The ``psum`` hook of a solve on one device: its partials are already
+    the whole sums."""
+    return tree
+
+
+def _lm_dense(graph: PoseGraph, n: int, iterations: int, damping: float,
+              fix_first: bool, psum=one_device_psum):
+    """The dense LM loop over ``graph``'s edges; ``psum`` sums the system's
+    partials and the candidate's cost over the ranks that hold the other
+    edges (the identity on one device). Returns (q, t)."""
     q, t = graph.q, graph.t
     inc_i = _incidence(graph.edge_i, n, t.dtype)
     inc_j = _incidence(graph.edge_j, n, t.dtype)
     lam = torch.full((), damping, dtype=t.dtype, device=t.device)
     for _ in range(iterations):
-        H, b, cost = _assemble_system(graph, q, t, inc_i, inc_j)
+        H, b, cost = psum(_assemble_system(graph, q, t, inc_i, inc_j))
         dx = _solve_dense(H, b, n, lam, fix_first)
         q_new, t_new = _retract_all(q, t, dx)
-        new_cost = _cost(graph, q_new, t_new)
+        new_cost = psum(_cost(graph, q_new, t_new))
         ok = torch.isfinite(new_cost) & (new_cost < cost)
         q, t, lam = _lm_select(ok, q_new, t_new, q, t, lam)
-    return graph._replace(q=q, t=t)
+    return q, t
 
 
 def _edge_partials(graph: PoseGraph, q, t, inc_i, inc_j):
@@ -328,7 +347,18 @@ def optimize_pcg(graph: PoseGraph, iterations: int = 10,
     CG iteration counts low on chain + loop graphs. The same adaptive
     accept / reject as :func:`optimize`, with no host read.
     """
-    n = graph.q.shape[0]
+    q, t = _lm_pcg(graph, graph.q.shape[0], iterations, cg_iterations, damping,
+                   fix_first, anchor_weight)
+    return graph._replace(q=q, t=t)
+
+
+def _lm_pcg(graph: PoseGraph, n: int, iterations: int, cg_iterations: int,
+            damping: float, fix_first: bool, anchor_weight: float,
+            psum=one_device_psum):
+    """The LM-PCG loop over ``graph``'s edges; ``psum`` sums the gradient,
+    the preconditioner blocks, the costs and each J^T W J v partial over the
+    ranks that hold the other edges (the identity on one device). Damping
+    and the anchor are added once, after it. Returns (q, t)."""
     q, t = graph.q, graph.t
     anchor = anchor_weight if fix_first else 0.0
     inc_i = _incidence(graph.edge_i, n, t.dtype)
@@ -339,19 +369,20 @@ def optimize_pcg(graph: PoseGraph, iterations: int = 10,
         r0, Ji, Jj, b = _edge_partials(graph, q, t, inc_i, inc_j)
         cost = torch.sum(r0 * r0 * graph.weight[:, None])
         D = _diag_blocks(graph, Ji, Jj, inc_i, inc_j)
+        b, D, cost = psum((b, D, cost))
         dscale, Minv = _finish_precond(D, lam, anchor, first)
         raw = _hvp(graph, Ji, Jj, inc_i, inc_j)
 
-        def hvp(v):
-            out = raw(v) + lam * dscale * v
+        def hvp(v, raw=raw, dscale=dscale, lam=lam):
+            out = psum(raw(v)) + lam * dscale * v
             return torch.where(first, out + anchor * v, out)
 
         dx = _pcg(hvp, Minv, b, cg_iterations)
         q_new, t_new = _retract_all(q, t, dx)
-        new_cost = _cost(graph, q_new, t_new)
+        new_cost = psum(_cost(graph, q_new, t_new))
         ok = torch.isfinite(new_cost) & (new_cost < cost)
         q, t, lam = _lm_select(ok, q_new, t_new, q, t, lam)
-    return graph._replace(q=q, t=t)
+    return q, t
 
 
 def pad_edges(graph: PoseGraph, multiple: int) -> PoseGraph:
@@ -389,6 +420,62 @@ def pad_nodes(graph: PoseGraph, multiple: int) -> PoseGraph:
     return graph._replace(q=torch.cat([graph.q, iq]),
                           t=torch.cat([graph.t, torch.zeros((pad, 3), dtype=graph.t.dtype,
                                                             device=dev)]))
+
+
+def _edge_shard(graph: PoseGraph, mesh) -> PoseGraph:
+    """This dp rank's block of the edges (the poses whole), on its device."""
+    n_dp = mesh.shape["dp"]
+    e = graph.edge_i.shape[0]
+    if e % n_dp != 0:
+        raise ValueError(f"{e} edges must divide evenly over dp={n_dp}: pad_edges first")
+    per = e // n_dp
+    lo = mesh.dp_index * per
+    return PoseGraph(graph.q.to(mesh.device), graph.t.to(mesh.device),
+                     *(x[lo:lo + per].to(mesh.device) for x in graph[2:]))
+
+
+def make_sharded_optimize(mesh, n_nodes: int, iterations: int = 10,
+                          damping: float = 1e-4, fix_first: bool = True):
+    """Distributed dense LM: the EDGES split over the mesh's dp ranks, each
+    rank's normal-system partials (H, b and the cost) combined by ONE psum
+    a step, the solve and the update replicated. The candidate's cost is
+    psummed too, so every rank takes the same accept / reject.
+
+    Returns ``run(graph) -> PoseGraph``, called by every rank with the same
+    whole graph, whose edge count divides evenly over dp (see
+    :func:`pad_edges`); every rank returns the same poses.
+    """
+    from icp_tpu_torch.parallel.mesh import DP_AXIS, psum_pytree
+
+    def run(graph: PoseGraph) -> PoseGraph:
+        q, t = _lm_dense(_edge_shard(graph, mesh), n_nodes, iterations, damping, fix_first,
+                         psum=lambda tree: psum_pytree(tree, DP_AXIS, mesh))
+        return PoseGraph(q, t, *(x.to(mesh.device) for x in graph[2:]))
+
+    return run
+
+
+def make_sharded_optimize_pcg(mesh, n_nodes: int, iterations: int = 10,
+                              cg_iterations: int = 32, damping: float = 1e-4,
+                              fix_first: bool = True,
+                              anchor_weight: float = 1e6):
+    """Distributed matrix-free LM-PCG: the edges split over dp, the poses
+    replicated. Each LM step psums the gradient, the block-diagonal
+    preconditioner blocks and the cost in one all-reduce; each CG step
+    psums one (n, 6) J^T W J v partial, O(n) floats where the dense path
+    moves the (6n)^2 system.
+
+    Returns ``run(graph) -> PoseGraph`` as :func:`make_sharded_optimize`.
+    """
+    from icp_tpu_torch.parallel.mesh import DP_AXIS, psum_pytree
+
+    def run(graph: PoseGraph) -> PoseGraph:
+        q, t = _lm_pcg(_edge_shard(graph, mesh), n_nodes, iterations, cg_iterations,
+                       damping, fix_first, anchor_weight,
+                       psum=lambda tree: psum_pytree(tree, DP_AXIS, mesh))
+        return PoseGraph(q, t, *(x.to(mesh.device) for x in graph[2:]))
+
+    return run
 
 
 def graph_cost(graph: PoseGraph) -> torch.Tensor:

@@ -1221,3 +1221,37 @@ def test_slam_engine_on_card_matches_cpu(cuda_dev):
         assert kg.pose.t.device.type == "cuda"
         assert float((kg.pose.t.cpu() - kc.pose.t).abs().max()) <= 1.0
         assert float((kg.pose.q.cpu().abs() - kc.pose.q.abs()).abs().max()) <= 2e-2
+
+
+@pytest.mark.parametrize("mesh", [(2, 1), (1, 2)])
+def test_sharded_register_world_on_card(cuda_dev, mesh, tmp_path):
+    """A world of 2 ranks sharing the card (gloo carries the CUDA tensors)
+    runs make_sharded_register at m 4096, n_r 64 on the synthetic pair:
+    POINT (K2 and K3 every step) and POINT + HUBER with the adaptive scale
+    (K2 and K5, the distributed median). Both ranks end bitwise equal, and
+    near the card's own register: tests/test_sharded.py's bars (0.1 mm and
+    5e-3 deg for POINT, 0.5 mm and 0.05 deg for the robust run)."""
+    from icp_tpu_torch import ICPConfig, ICPParams, RobustKernel, register
+    from icp_tpu_torch.icp.quaternion import qangle_deg, qconj, qmul
+    from icp_tpu_torch.kernels import native
+    from icp_tpu_torch.parallel.dryrun import launch_world
+
+    native.load_library()  # built here: the ranks load it and never compile
+    fixed, moving = (torch.from_numpy(a) for a in synthetic_pair(4096))
+    params = ICPParams(alpha=2e2)
+    cases = {"point": (ICPConfig(m=4096, n_r=64), "bin_point_moments", (0.1, 5e-3)),
+             "robust": (ICPConfig(m=4096, n_r=64, robust=RobustKernel.HUBER,
+                                  robust_adaptive=True), "bin_search", (0.5, 0.05))}
+    res = launch_world({"mesh": mesh, "device": "cuda", "tasks": [
+        dict(kind="register", name=name, config=config, params=params, fixed=fixed,
+             moving=moving) for name, (config, _, _) in cases.items()]},
+        2, tmp_path, timeout=180.0, init_timeout=60.0)
+    for name, (config, kernel, (t_bar, a_bar)) in cases.items():
+        a, b = (r["tasks"][name] for r in res)
+        assert all(torch.equal(a["out"][k], b["out"][k]) for k in a["out"]), name
+        k = int(a["out"]["k"])
+        for ran in (a["launches"], b["launches"]):
+            assert ran["bin_table"] >= k + 1 and ran[kernel] >= k, (name, ran)
+        ref = register(fixed.to(cuda_dev), moving.to(cuda_dev), params, config)
+        assert float((a["out"]["t"] - ref.t.cpu()).norm()) < t_bar, name
+        assert float(qangle_deg(qmul(a["out"]["q"], qconj(ref.q.cpu())))) < a_bar, name

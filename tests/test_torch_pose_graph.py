@@ -12,9 +12,25 @@ Tolerances:
   and radians mixed, 400 mm lever arms), so two correct solves of the same
   system differ far above their inputs' rounding, and once one LM step is
   accepted on one side and rejected on the other the paths part. On the
-  small graphs the two packages' final poses agree within 0.005 mm (dense,
-  8 nodes), 0.05 mm (PCG, 8 nodes) and 0.5 mm (64-node circle), their costs
-  within 1e-4 relative, the quaternions within 1e-4 (1e-3 on the circle);
+  small graphs the two packages' costs agree within 1e-4 relative and
+  their quaternions within 1e-4 (~1e-3 on the circle). Their final poses
+  sit where two solves that sum in another order land: the order in which
+  the host's vector code sums moves them by 0.01-0.7 mm on these graphs
+  (ATen's default capability against AVX2 or AVX-512, XLA:CPU at one
+  thread against four). So three tests hold the poses, and the ATE against
+  the graph's ground truth, to the reference's own spread, measured on the
+  host they run on: JAX's solve once more with the graph's measurements
+  moved one float32 ulp up, then down, and its initial poses likewise; the
+  t and ATE bars are the larger of the former fixed t bar (0.005 mm dense,
+  0.05 mm PCG, 0.5 mm on the 64-node circle) and four times the largest of
+  those spreads. The cost (1e-4 relative) and q (1e-4 dense, 1e-3
+  otherwise) keep their fixed bars, but for the circle's q: its rotations
+  are the least determined of these graphs, and the one-ulp moves shift
+  the reference's own q by ~1e-3 there, so q takes the same rule. The
+  dense solve of the PCG test is held to JAX's at 12 iterations: at 6-8 one LM
+  accept / reject is decided by rounding (the one-ulp moves shift the
+  reference's own cost by 7e-3 at 6, 1.6e-4 at 8, and by under 1.5e-5 from
+  10 on);
   on the 96-node ring within 2 mm, 1 % of the cost and 5e-3 in q (its
   rotation residuals, in radians beside residuals in mm, weigh ~1e3 times
   less, so its rotations are the least determined). The 256-node chain,
@@ -59,6 +75,67 @@ def _to_torch(graph) -> TP.PoseGraph:
 def _cost(graph) -> float:
     return float(TP.graph_cost(graph)) if isinstance(graph.q, torch.Tensor) \
         else float(JP.graph_cost(graph))
+
+
+def _nextafter(x, direction):
+    return jnp.asarray(np.nextafter(np.asarray(x), np.float32(direction)))
+
+
+def _ate(t, gt) -> float:
+    """RMS position error (mm) of node positions ``t`` against ``gt``."""
+    return float(np.sqrt(np.mean(np.sum((np.asarray(t, np.float64) - gt) ** 2, -1))))
+
+
+def _spread(jg, solve, gt):
+    """The reference's own spread on ``jg``: (JAX's solve of ``jg``, max |dt|
+    mm, max |dq|, max relative |dcost|, max |dATE| mm) of JAX's solve of the
+    graph with its measurements moved one float32 ulp up, then down, and
+    with its initial poses moved likewise, against the solve of ``jg``
+    itself."""
+    base = solve(jg)
+    moved = [jg._replace(meas_q=_nextafter(jg.meas_q, d), meas_t=_nextafter(jg.meas_t, d))
+             for d in (np.inf, -np.inf)]
+    moved += [jg._replace(q=_nextafter(jg.q, d), t=_nextafter(jg.t, d))
+              for d in (np.inf, -np.inf)]
+    outs = [solve(g) for g in moved]
+    dt = max(float(np.abs(np.asarray(o.t) - np.asarray(base.t)).max()) for o in outs)
+    dq = max(float(np.abs(np.asarray(o.q) - np.asarray(base.q)).max()) for o in outs)
+    c = _cost(base)
+    dc = max(abs(_cost(o) - c) / c for o in outs)
+    da = max(abs(_ate(o.t, gt) - _ate(base.t, gt)) for o in outs)
+    return base, dt, dq, dc, da
+
+
+def _close_to_spread(tout, jg, solve, gt, t_bar, cost_rel, q_bar=1e-3, q_spread=False):
+    """:func:`_close` with t held to max(t_bar, 4 x the reference's t
+    spread) (:func:`_spread`) and the ATE against ``gt`` to max(t_bar, 4 x
+    its ATE spread); q to ``q_bar`` (with ``q_spread``, to max(q_bar, 4 x
+    its q spread)) and the relative cost to ``cost_rel``."""
+    jout, dt, dq, dc, da = _spread(jg, solve, gt)
+    t_tol, ate_tol = max(t_bar, 4 * dt), max(t_bar, 4 * da)
+    q_tol = max(q_bar, 4 * dq) if q_spread else q_bar
+    msg = (f"reference spread: t {dt} mm, q {dq}, cost {dc}, ATE {da} mm; bars t {t_tol} "
+           f"mm, q {q_tol}, cost {cost_rel}, ATE {ate_tol} mm")
+    np.testing.assert_allclose(tout.t.numpy(), np.asarray(jout.t), rtol=0, atol=t_tol,
+                               err_msg=msg)
+    np.testing.assert_allclose(tout.q.numpy(), np.asarray(jout.q), rtol=0, atol=q_tol,
+                               err_msg=msg)
+    a_t, a_j = _ate(tout.t.numpy(), gt), _ate(jout.t, gt)
+    assert abs(a_t - a_j) <= ate_tol, (a_t, a_j, msg)
+    cj, ct = _cost(jout), _cost(tout)
+    assert abs(ct - cj) <= cost_rel * cj, (ct, cj, msg)
+
+
+def _gt_t(gt) -> np.ndarray:
+    return np.stack([np.asarray(p.t, np.float64) for p in gt])
+
+
+def _circle_gt(n=64, radius=400.0) -> np.ndarray:
+    """_circle_graph's ground-truth positions, node 0 moved to the origin
+    (where the graph's first pose sits; the rotations are the identity)."""
+    a = 2 * np.pi * np.arange(n) / n
+    ts = np.stack([radius * np.cos(a), np.zeros(n), radius * np.sin(a)], 1)
+    return ts.astype(np.float32).astype(np.float64) - ts.astype(np.float32)[0]
 
 
 def _close(tout, jout, t_tol, cost_rel, q_tol=1e-3):
@@ -107,7 +184,7 @@ def test_edge_jacobians_match_jax(scale):
 
 
 def test_optimize_reduces_cost_and_matches_jax():
-    jg, _ = _chain_with_loop(np.random.default_rng(42))
+    jg, gt = _chain_with_loop(np.random.default_rng(42))
     tg = _to_torch(jg)
     c0 = _cost(tg)
     assert abs(c0 - _cost(jg)) <= 1e-5 * c0
@@ -116,7 +193,8 @@ def test_optimize_reduces_cost_and_matches_jax():
     assert c1 < c0 * 0.2, (c0, c1)
     c2 = _cost(TP.optimize(tg, iterations=20))
     assert c2 <= c1 * 1.01
-    _close(out, JP.optimize(jg, iterations=10), t_tol=0.005, cost_rel=1e-4, q_tol=1e-4)
+    _close_to_spread(out, jg, lambda g: JP.optimize(g, iterations=10), _gt_t(gt),
+                     t_bar=0.005, cost_rel=1e-4, q_bar=1e-4)
 
 
 def test_optimize_perfect_graph_is_fixed_point():
@@ -159,15 +237,19 @@ def test_anchor_fixed():
 def test_pcg_matches_dense_and_jax():
     """Matrix-free PCG lands where the dense solve lands, in the port as in
     JAX, and each agrees with JAX's."""
-    jg, _ = _chain_with_loop(np.random.default_rng(42), n=8, noise=0.02)
+    jg, gt = _chain_with_loop(np.random.default_rng(42), n=8, noise=0.02)
     tg = _to_torch(jg)
     dense = TP.optimize(tg, iterations=8)
     pcg = TP.optimize_pcg(tg, iterations=8, cg_iterations=64, damping=1e-6)
     np.testing.assert_allclose(pcg.t.numpy(), dense.t.numpy(), atol=0.5)
     assert _cost(pcg) <= _cost(dense) * 1.05
-    _close(pcg, JP.optimize_pcg(jg, iterations=8, cg_iterations=64, damping=1e-6),
-           t_tol=0.05, cost_rel=1e-4)
-    _close(dense, JP.optimize(jg, iterations=8), t_tol=0.005, cost_rel=1e-4, q_tol=1e-4)
+    _close_to_spread(pcg, jg, lambda g: JP.optimize_pcg(g, iterations=8, cg_iterations=64,
+                                                        damping=1e-6),
+                     _gt_t(gt), t_bar=0.05, cost_rel=1e-4)
+    # Against JAX where both take the same LM path (see the module's
+    # docstring): 12 iterations.
+    _close_to_spread(TP.optimize(tg, iterations=12), jg, lambda g: JP.optimize(g, iterations=12),
+                     _gt_t(gt), t_bar=0.005, cost_rel=1e-4, q_bar=1e-4)
 
 
 def test_lm_survives_divergent_graph():
@@ -180,7 +262,8 @@ def test_lm_survives_divergent_graph():
     assert not bool(torch.isnan(out.q).any() | torch.isnan(out.t).any())
     c1 = _cost(out)
     assert np.isfinite(c1) and c1 < c0 * 0.2, (c0, c1)
-    _close(out, JP.optimize(jg, iterations=10), t_tol=0.5, cost_rel=1e-4)
+    _close_to_spread(out, jg, lambda g: JP.optimize(g, iterations=10), _circle_gt(),
+                     t_bar=0.5, cost_rel=1e-4, q_spread=True)
 
 
 def test_lm_pcg_survives_divergent_graph():

@@ -38,7 +38,8 @@ def test_photo_fixture_is_the_jpeg_decoded():
 
 def test_no_image_library_on_the_path():
     """With PIL and matplotlib unimportable, every module of the port and
-    chip_smoke.py import, the photo loads and a TUM sequence round-trips."""
+    chip_smoke.py import (and none of them imports jax, icp_tpu or
+    __graft_entry__), the photo loads and a TUM sequence round-trips."""
     code = """
 import importlib, pkgutil, sys, tempfile
 sys.modules["PIL"] = None
@@ -52,7 +53,8 @@ assert realdata.load_photo().shape == (600, 512, 3)
 root = tempfile.mkdtemp()
 seq = tum.write_synthetic_sequence(root, n_frames=1, device="cpu")
 assert tum.load_cloud(seq.rgb_files[0], seq.depth_files[0]).shape == (480, 640, 8)
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "matplotlib", "jax", "icp_tpu")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("PIL", "matplotlib", "jax", "icp_tpu", "__graft_entry__")
              and sys.modules[m] is not None)
 assert not bad, bad
 print("ok")

@@ -12,8 +12,8 @@ at this circle's ~12 candidates (262 s for all 220 frames on one core),
 where JAX's ``vmap`` takes 29 s for the whole circle. The 600-keyframe
 case (tests/test_slam_scale.py::test_slam_600_keyframes_closures_and_sharded_backend)
 has no CPU twin: the card runs ``optimize_pcg`` on a 600-node graph in
-``chip_smoke.py`` in its place, and its sharded part comes with
-``parallel``.
+``chip_smoke.py`` in its place (and the sharded PCG on it, over 2 ranks);
+its sharded-backend half runs here on the 48-frame circle's graph.
 
 Tolerances: keyframe counts, verified-pair counts, verification batch
 sizes and loop-closure sets equal; poses within 0.05 mm and 1e-5 in q
@@ -29,9 +29,13 @@ import torch
 
 import icp_tpu
 import icp_tpu_torch
+from icp_tpu.parallel.mesh import make_mesh as j_make_mesh
 from icp_tpu.slam import mapping as JM
+from icp_tpu.slam import pose_graph as JP
 from icp_tpu.slam.odometry import KeyframePolicy as JK
+from icp_tpu_torch.parallel.dryrun import launch_world
 from icp_tpu_torch.slam import mapping as TM
+from icp_tpu_torch.slam import pose_graph as TP
 from icp_tpu_torch.slam.odometry import KeyframePolicy as TK
 from tests.test_slam_scale import M, N_FRAMES, _camera_frame, _loop_poses, _world_cloud
 
@@ -82,12 +86,24 @@ def _same(je, te, t_tol, q_tol):
                                    rtol=0, atol=q_tol)
 
 
-def test_engine_scale_circle_matches_jax():
+@pytest.fixture(scope="module")
+def circle():
+    """Both engines over the first 48 frames of the 220-frame circle, and
+    each engine's pose graph before any backend moved it."""
+    je, te = _run(_frames(N_FRAMES, N_CUT), max_distance=25.0, max_angle_deg=20.0, min_gap=10)
+    kfs = je.map.keyframes
+    j_graph = JP.graph_from_poses([k.pose.q for k in kfs], [k.pose.t for k in kfs],
+                                  je.map.edges, je.map.measurements,
+                                  np.asarray(je.map.weights, np.float32))
+    return je, te, j_graph, te._graph()
+
+
+def test_engine_scale_circle_matches_jax(circle):
     """The first 48 frames of the 220-frame circle, every frame a
     keyframe: bounded verification work, power-of-two batches, closures
     where the arc comes within 25 mm, and the backend on the result."""
     poses = _loop_poses(N_FRAMES)
-    je, te = _run(_frames(N_FRAMES, N_CUT), max_distance=25.0, max_angle_deg=20.0, min_gap=10)
+    je, te = circle[:2]
     n_kf = len(te.map.keyframes)
     assert n_kf == N_CUT
     assert len(te.map.loop_closures) > 0, "no loop closures found"
@@ -105,6 +121,33 @@ def test_engine_scale_circle_matches_jax():
     true_gap = np.linalg.norm(np.asarray(poses[N_CUT - 1][1]) - np.asarray(poses[0][1]))
     assert abs(np.linalg.norm(t_last - t_first) - true_gap) < 10.0
     _same(je, te, 0.5, 5e-3)
+
+
+def test_sharded_backend_on_the_engine_graph(circle, tmp_path):
+    """tests/test_slam_scale.py's part (d) at this file's cut: the
+    edge-sharded matrix-free backend, on a gloo world of 2 CPU ranks (one
+    torch thread a rank, a 60 s rendezvous and collective timeout, 120 s to
+    finish), consumes the engine's graph and lands in the single-device
+    optimum, within that test's bound (1.25 x the single-device cost); its
+    poses lie within this file's post-backend tolerances (0.5 mm, 5e-3 in
+    q) of those JAX's sharded backend reaches on JAX's engine graph; both
+    ranks end bitwise equal."""
+    _, _, j_graph, graph = circle
+    single = TP.optimize_pcg(graph, iterations=6)
+    res = launch_world({"mesh": (2, 1), "device": "cpu", "tasks": [
+        dict(kind="optimize_pcg", name="pcg", graph=TP.pad_edges(graph, 2),
+             kwargs={"iterations": 6})]}, 2, tmp_path, timeout=120.0, init_timeout=60.0)
+    out = [r["tasks"]["pcg"]["out"] for r in res]
+    assert torch.equal(out[0]["q"], out[1]["q"]) and torch.equal(out[0]["t"], out[1]["t"])
+    c_single = float(TP.graph_cost(single))
+    c_shard = float(TP.graph_cost(graph._replace(q=out[0]["q"], t=out[0]["t"])))
+    assert np.isfinite(c_shard) and c_shard <= c_single * 1.25, (c_single, c_shard)
+    run = JP.make_sharded_optimize_pcg(j_make_mesh(2, 1), n_nodes=j_graph.q.shape[0],
+                                       iterations=6)
+    j_out = run(JP.pad_edges(j_graph, 2))
+    np.testing.assert_allclose(out[0]["t"].numpy(), np.asarray(j_out.t), rtol=0, atol=0.5)
+    np.testing.assert_allclose(np.abs(out[0]["q"].numpy()), np.abs(np.asarray(j_out.q)),
+                               rtol=0, atol=5e-3)
 
 
 def test_candidate_gate_matches_bruteforce():

@@ -41,29 +41,46 @@ def one_thread():
 def test_register_matches_jax_on_benchmark_pair(one_thread):
     """m=4096, n_r=64 on _synthetic_pair(4096), the benchmark's alpha=2e2.
 
-    Both stop at k=6 and agree to 2e-4 deg and 1e-5 in scale. Translation
-    is held to 0.01 mm, the convergence threshold: after convergence each
-    float32 step moves t by up to ~0.01 mm (the scale solve
-    sqrt(S[9]/S[10]) carries ~5e-6 of rounding, times |mean_m| ~ 1500 mm),
-    which is the reference's own spread too (its eager step-by-step loop
-    and its jitted loop end 0.0047 mm apart on this pair).
+    After convergence each float32 step moves t by up to ~0.01 mm, the
+    translation threshold itself (the scale solve sqrt(S[9]/S[10]) carries
+    ~5e-6 of rounding, times |mean_m| ~ 1500 mm), so the step at which the
+    loop stops is decided by rounding: by the order in which the host's
+    vector code sums. On one host the port stops at k 6 with ATen's default
+    capability and at k 8 with AVX2 or AVX-512, where JAX stops at 6. So the
+    converged k are held within 2 steps of each other, both below the cap,
+    and the states are compared where both packages run the same steps:
+    with thresholds 0 for a fixed 6 and a fixed 8 steps, t within 0.01 mm,
+    the angle within 2e-4 deg and the scale within 1e-5 (the reference's own
+    spread: its eager step-by-step loop and its jitted loop end 0.0047 mm
+    apart on this pair). Both land on the ground truth, as the reference
+    does (0.0069 mm).
     """
     m, n_r = 4096, 64
     fixed, moving = _synthetic_pair(m)
-    js = icp_tpu.register(jnp.asarray(fixed), jnp.asarray(moving),
-                          icp_tpu.ICPParams(alpha=2e2).as_f32(),
-                          icp_tpu.ICPConfig(m=m, n_r=n_r))
-    ts = icp_tpu_torch.register(torch.from_numpy(fixed), torch.from_numpy(moving),
-                                icp_tpu_torch.ICPParams(alpha=2e2),
-                                icp_tpu_torch.ICPConfig(m=m, n_r=n_r))
-    assert int(js.k) == int(ts.k) == 6
-    assert np.linalg.norm(ts.t.numpy() - np.asarray(js.t)) <= 0.01
-    assert float(qangle_deg(qmul(jnp.asarray(ts.q.numpy()), qconj(js.q)))) <= 2e-4
-    assert abs(float(ts.s) - float(js.s)) <= 1e-5
+
+    def both(max_iterations=40, **thresholds):
+        js = icp_tpu.register(jnp.asarray(fixed), jnp.asarray(moving),
+                              icp_tpu.ICPParams(alpha=2e2, **thresholds).as_f32(),
+                              icp_tpu.ICPConfig(m=m, n_r=n_r, max_iterations=max_iterations))
+        ts = icp_tpu_torch.register(torch.from_numpy(fixed), torch.from_numpy(moving),
+                                    icp_tpu_torch.ICPParams(alpha=2e2, **thresholds),
+                                    icp_tpu_torch.ICPConfig(m=m, n_r=n_r,
+                                                            max_iterations=max_iterations))
+        return js, ts
+
+    js, ts = both()
+    assert abs(int(js.k) - int(ts.k)) <= 2, (int(js.k), int(ts.k))
+    assert max(int(js.k), int(ts.k)) < 40, (int(js.k), int(ts.k))
     # Both land on the ground truth, as the reference does (0.0069 mm).
     assert np.linalg.norm(ts.t.numpy() - T_GT) < 0.02
     assert float(qangle_deg(qmul(jnp.asarray(ts.q.numpy()),
                                  qconj(jnp.asarray(Q_GT))))) < 0.001
+    for steps in (6, 8):
+        js, ts = both(steps, angle_threshold_deg=0.0, translation_threshold=0.0)
+        assert int(js.k) == int(ts.k) == steps
+        assert np.linalg.norm(ts.t.numpy() - np.asarray(js.t)) <= 0.01, steps
+        assert float(qangle_deg(qmul(jnp.asarray(ts.q.numpy()), qconj(js.q)))) <= 2e-4, steps
+        assert abs(float(ts.s) - float(js.s)) <= 1e-5, steps
 
 
 def _step_by_step(moving, index, params, config):
@@ -141,6 +158,8 @@ import json, sys
 import numpy as np, torch
 import icp_tpu_torch as T
 from icp_tpu_torch.kernels import fused_gn, fused_step, native, table_build
+from icp_tpu_torch.parallel import distributed, dryrun, mesh, sharded
+from icp_tpu_torch.slam import bundle_adjustment, pose_graph
 from icp_tpu_torch.sensors import synthetic
 rng = np.random.default_rng(0)
 f = np.ones((256, 8), np.float32)
@@ -154,7 +173,8 @@ for cfg in (T.ICPConfig(m=256, n_r=16),
 synthetic.render(synthetic.wall_scene(device="cpu"), synthetic.CameraPose.identity(device="cpu"))
 print(json.dumps({
     "k": min(ks),
-    "modules": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "icp_tpu")),
+    "modules": sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "icp_tpu", "__graft_entry__")),
     "tf32": [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32],
     "precision": torch.get_float32_matmul_precision(),
     "launches": [fused_step.rep_assign_counts.launches, table_build.bin_table.launches,

@@ -210,6 +210,27 @@ Slice 9 (parallel/ on torch.distributed) adds:
     held against their twins on what one sharded step hands them at every
     rank's shapes of the meshes (1, 1), (1, 2) and (2, 1).
 
+Slice 10 (viz/ and the examples) adds:
+
+3i. The six examples on the card (examples_phase), each through its
+    ``main(argv)`` at its defaults and full width, into a temporary
+    directory: frame_grabber twice (pose A, then pose B of the gate pair:
+    0.008 rad about y, t (10, -6, 8) mm) and registration on those two
+    files, within 10 mm and 0.3 deg of pose B (POINT's landmark-lattice
+    floor on a rendered pair), K1, K2 and K3 launched k times;
+    registration --synthetic --robust huber likewise, K3 (robust) k
+    times; step_by_step --synthetic --batch 8 torch.equal to an
+    ICPStepByStep driven directly for 8 steps, K1, K2 and K3 launched 8
+    times; odometry --frames 10 and --plane (ATE printed, finite; K7
+    launched for --plane); odometry_service --frames 12
+    --checkpoint-every 4 --fail-at 6 (exit code 2), its resume, and an
+    uninterrupted run: the final snapshots equal array for array;
+    multichip in a world of 1 on NCCL here and with --dp 2 as two ranks
+    sharing the card on gloo, within phase 3h's POINT bars of register
+    (0.1 mm, 5e-3 deg) and 0.05 mm / 0.005 deg of the ground truth, K2
+    and K3 launched. The examples' own printed reports are kept to their
+    last lines.
+
 The line before the last is {"kernels": [...]}: per kernel its launches on
 the main path, its largest error against the twin over every shape checked
 (and, for K1, K1′, K2, K3 and K7, max_abs_err_16x at the 16x shape apart), its
@@ -242,6 +263,7 @@ no single PyTorch call computes any of these functions. The last line is
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import subprocess
 import sys
@@ -1143,7 +1165,8 @@ def _sharded_kernel_checks(dev, mesh, variants, params) -> dict:
     lowest id on a tie, which is what the two pmins of
     ``sharded._phase1_owned_bins`` give. Returns max|d| per kernel."""
     from icp_tpu_torch.icp.state import identity_state
-    from icp_tpu_torch.kernels import bin_search as bs
+    # The module, not the wrapper the package exports under its name.
+    bs = importlib.import_module("icp_tpu_torch.kernels.bin_search")
     from icp_tpu_torch.kernels import fused_step as fs
     from icp_tpu_torch.ops.distance import pairwise_sq_dists
     from icp_tpu_torch.parallel import sharded
@@ -1432,6 +1455,160 @@ def sharded_phase(dev, smi, drive_call, require_launched, launches, slam_graph,
     return errs
 
 
+def _quiet(fn, *args, tail: int = 2, **kw):
+    """``fn(*args, **kw)`` with its printed lines kept back; the last
+    ``tail`` of them are printed, indented (the last 20 if it raises).
+    Returns what ``fn`` returned."""
+    import contextlib
+    import io
+
+    out, ok = io.StringIO(), False
+    try:
+        with contextlib.redirect_stdout(out):
+            ret = fn(*args, **kw)
+        ok = True
+    finally:
+        for line in out.getvalue().splitlines()[-(tail if ok else 20):]:
+            print(f"  | {line}", flush=True)
+    return ret
+
+
+def examples_phase(dev, smi, drive_call, require_launched, launches) -> None:
+    """Phase 3i: slice 10, the six examples (``icp_tpu_torch.examples``)
+    on the card at their defaults, each driven through ``main(argv)`` on the
+    main path. Raises on any failed check."""
+    import tempfile
+    from pathlib import Path
+    from types import SimpleNamespace
+
+    import torch.distributed as dist
+
+    from icp_tpu_torch import ICPConfig, ICPParams, register
+    from icp_tpu_torch.examples import (frame_grabber, multichip, odometry, odometry_service,
+                                        registration, step_by_step)
+    from icp_tpu_torch.icp.pipeline import ICPStepByStep
+    from icp_tpu_torch.icp.quaternion import qangle_deg, qconj, qmul
+    from icp_tpu_torch.parallel import initialize_multihost
+    from icp_tpu_torch.parallel.dryrun import free_port, launch_world
+    from icp_tpu_torch.sensors.synthetic import orbit_trajectory, synthetic_pair
+    from icp_tpu_torch.slam import se3
+    from icp_tpu_torch.slam.odometry import absolute_trajectory_error
+
+    t_phase = time.perf_counter()
+    k123 = ("rep_assign_counts", "bin_table", "bin_point_moments")
+    fields = ("q", "t", "s", "qk", "tk", "sk", "k")
+    with tempfile.TemporaryDirectory() as tmp:
+        # Grab, then register: the reference's workflow.
+        pose_b = [str(x) for x in (*T_GT_R, 0.008)]
+        _quiet(frame_grabber.main, ["-s", "1", "--out-dir", tmp], tail=1)
+        _quiet(frame_grabber.main, ["-s", "2", "--pose", *pose_b, "--out-dir", tmp], tail=1)
+        for name, argv, kernels in [
+                ("grab-then-register", ["kg_pc8d", "--data-dir", tmp], k123),
+                ("registration --synthetic --robust huber",
+                 ["--synthetic", "--robust", "huber"], ("bin_point_moments",))]:
+            st, wall, ran = drive_call(lambda: _quiet(
+                registration.main, [*argv, "--out-dir", f"{tmp}/reg"], tail=3))
+            k = int(st.k)
+            t_err, a_err = _errors(st, Q_GT_R, T_GT_R)
+            print(f"example {name}: k={k} t_err={t_err:.4f} mm a_err={a_err:.5f} deg "
+                  f"(hold 10 mm, 0.3 deg) wall={wall:.3f} s launches={ran}", flush=True)
+            if not (1 <= k < 40 and t_err < 10.0 and a_err < 0.3):
+                raise AssertionError(f"example {name}: off the grabber's pose")
+            require_launched(ran, kernels, k, f"example {name}")
+
+        # step_by_step --batch 8 against ICPStepByStep driven directly.
+        app, wall, ran = drive_call(lambda: _quiet(
+            step_by_step.main, ["--synthetic", "--batch", "8", "--out-dir", f"{tmp}/sbs"]))
+        fixed, moving = step_by_step.load_pair(SimpleNamespace(
+            synthetic=True, data_dir=tmp, name="kg_pc8d"), dev)
+        direct = ICPStepByStep(fixed, moving, ICPParams(alpha=2e2), ICPConfig(estimate_scale=False))
+        direct.build_rbc()
+        for _ in range(8):
+            direct.step(verbose=False)
+        equal = all(torch.equal(getattr(app.state, f), getattr(direct.state, f)) for f in fields)
+        t_err, a_err = _errors(app.state, Q_GT_R, T_GT_R)
+        print(f"example step_by_step --batch 8: k={int(app.state.k)} t_err={t_err:.4f} mm "
+              f"a_err={a_err:.5f} deg after 8 steps; torch.equal to ICPStepByStep driven "
+              f"directly: {equal}; wall={wall:.3f} s launches={ran}", flush=True)
+        if not equal:
+            raise AssertionError("step_by_step --batch 8 differs from ICPStepByStep")
+        require_launched(ran, k123, 8, "example step_by_step")
+
+        for argv, kernels in [([], k123), (["--plane"], ("bin_gn_moments",))]:
+            eng, wall, ran = drive_call(lambda: _quiet(
+                odometry.main, ["--frames", "10", *argv, "--out-dir", f"{tmp}/odo"], tail=5))
+            gt = [se3.Pose(p.q, p.t) for p in
+                  orbit_trajectory(10, radius_mm=60.0, yaw_rad=0.05, device=dev)]
+            ate = absolute_trajectory_error(eng.trajectory, gt)
+            print(f"example odometry --frames 10 {' '.join(argv)}: ATE {ate:.3f} mm, "
+                  f"{len(eng.map.keyframes)} keyframes, {len(eng.map.loop_closures)} closures; "
+                  f"wall={wall:.3f} s launches={ran}", flush=True)
+            if not (len(eng.trajectory) == 10 and np.isfinite(ate)):
+                raise AssertionError(f"example odometry {argv}: no finite ATE")
+            require_launched(ran, kernels, 1, f"example odometry {argv}")
+
+        # The service: an injected crash, its resume, an uninterrupted run.
+        run = ["--frames", "12", "--checkpoint-every", "4"]
+        rc = _quiet(odometry_service.main, [*run, "--fail-at", "6", "--state-dir", f"{tmp}/a"],
+                    tail=1)
+        if rc == 0:
+            raise AssertionError("odometry_service --fail-at 6 exited 0")
+        rc2, wall, ran = drive_call(lambda: _quiet(
+            odometry_service.main, [*run, "--state-dir", f"{tmp}/a"], tail=2))
+        rc3 = _quiet(odometry_service.main, [*run, "--state-dir", f"{tmp}/b"], tail=2)
+        with np.load(f"{tmp}/a/snap_000012.npz") as a, np.load(f"{tmp}/b/snap_000012.npz") as b:
+            same = a.files == b.files and all(np.array_equal(a[f], b[f]) for f in a.files)
+        print(f"example odometry_service: crash exit {rc}, resume exit {rc2}, uninterrupted "
+              f"exit {rc3}; resumed snapshot equal to the uninterrupted one: {same}; resume "
+              f"wall={wall:.3f} s launches={ran}", flush=True)
+        if not (rc2 == 0 and rc3 == 0 and same):
+            raise AssertionError("odometry_service: the resumed run differs")
+        require_launched(ran, k123, 1, "example odometry_service")
+
+        # multichip: a world of 1 on NCCL here, then two ranks on gloo.
+        f_np, m_np = synthetic_pair(M)
+        ref = register(torch.from_numpy(f_np).to(dev), torch.from_numpy(m_np).to(dev),
+                       ICPParams(alpha=ALPHA), ICPConfig(estimate_scale=False))
+
+        def check(st, wall, ran, where):
+            k = int(st.k)
+            t_err, a_err = _errors(st)
+            dt = float(np.linalg.norm(st.t.double().cpu().numpy() - ref.t.double().cpu().numpy()))
+            da = float(qangle_deg(qmul(st.q.cpu(), qconj(ref.q.cpu()))))
+            print(f"example multichip {where}: k={k} t_err={t_err:.6f} mm a_err={a_err:.7f} deg "
+                  f"(gate 0.05 mm, 0.005 deg); vs register |dt|={dt:.6f} mm dangle={da:.7f} "
+                  f"deg (bars 0.1 mm, 5e-3 deg); wall={wall:.3f} s launches={ran}", flush=True)
+            if not (1 <= k < 40 and t_err < 0.05 and a_err < 0.005 and dt < 0.1 and da < 5e-3):
+                raise AssertionError(f"example multichip {where}: off")
+            require_launched(ran, ("bin_table",), 1, f"example multichip {where}")
+            require_launched(ran, ("bin_point_moments",), k, f"example multichip {where}")
+
+        initialize_multihost(f"localhost:{free_port()}", 1, 0, backend="nccl", timeout_s=60)
+        try:
+            st, wall, ran = drive_call(lambda: _quiet(multichip.main, [], tail=3))
+        finally:
+            dist.destroy_process_group()
+        check(st, wall, ran, "world of 1, NCCL")
+        t0 = time.perf_counter()
+        results = launch_world({"mesh": (2, 1), "device": "cuda", "tasks": [dict(
+            kind="call", name="multichip", fn=multichip.rank_task, argv=["--dp", "2"])]},
+            2, f"{tmp}/world", backend="gloo", timeout=180.0, init_timeout=60.0)
+        outs = [r["tasks"]["multichip"] for r in results]
+        if not all(torch.equal(outs[1]["out"][f], outs[0]["out"][f]) for f in fields):
+            raise AssertionError("example multichip --dp 2: rank 1 differs from rank 0")
+        for name in outs[0]["launches"]:  # the sharded path's wrappers
+            launches[name] += sum(o["launches"][name] for o in outs)
+        report = [line for line in Path(f"{tmp}/world/rank0.log").read_text().splitlines()
+                  if line.startswith(("mesh:", "registered in"))]
+        for line in report:
+            print(f"  | {line}", flush=True)
+        st = SimpleNamespace(**outs[0]["out"])
+        check(st, max(o["wall"] for o in outs), outs[0]["launches"],
+              f"--dp 2, gloo, two ranks sharing one card ({time.perf_counter() - t0:.1f} s "
+              "with the ranks' start-up); every rank bitwise rank 0's")
+    print(f"phase 3i examples: {time.perf_counter() - t_phase:.1f} s on {smi}", flush=True)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1442,8 +1619,9 @@ def main() -> None:
     from icp_tpu_torch.icp.quaternion import qrotate
     from icp_tpu_torch.icp.run import build_index
     from icp_tpu_torch.icp.state import identity_state
-    from icp_tpu_torch.kernels import bin_search as bs
-    from icp_tpu_torch.kernels import brute_nn as bn
+    # The module, not the wrapper the package exports under its name.
+    bs = importlib.import_module("icp_tpu_torch.kernels.bin_search")
+    bn = importlib.import_module("icp_tpu_torch.kernels.brute_nn")
     from icp_tpu_torch.kernels import fused_gn as fg
     from icp_tpu_torch.kernels import fused_step as fs
     from icp_tpu_torch.kernels import knn_moments as km
@@ -2246,6 +2424,10 @@ def main() -> None:
     k2_err = max(k2_err, sharded_errs["bin_table"])
     k3c_err = max(k3c_err, sharded_errs["bin_point_moments"])
     k5_err = max(k5_err, sharded_errs["bin_search"])
+
+    # ---- 3i. Slice 10: the examples ----------------------------------------------
+    phase("3i")
+    examples_phase(dev, smi, drive_call, require_launched, launches)
 
     for name, n in launches.items():
         if n == 0:

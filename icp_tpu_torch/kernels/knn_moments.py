@@ -34,7 +34,11 @@ from __future__ import annotations
 import torch
 
 from icp_tpu_torch.kernels import native
-from icp_tpu_torch.kernels.fused_step import _bf16_round, dot3, lane_dot
+
+# fused_step's score helpers are imported inside the twins: fused_step
+# imports ops.distance, whose package re-exports ops.normals, which imports
+# this module's wrappers, so a module-level import here would meet a
+# half-initialized fused_step.
 
 BISECT_ITERS = 18  # halvings of the k-th distance value (the reference's)
 # The 6 unique entries (i, j) of a symmetric 3x3, in the order
@@ -60,6 +64,8 @@ def rep_top2_counts_ref(p3: torch.Tensor, reps: torch.Tensor,
                         chunk: int = 16384):
     """Plain twin of :func:`rep_top2_counts`, in chunks of rows (the whole
     (m, n_r) score is 2 GB at 262144 x 2048)."""
+    from icp_tpu_torch.kernels.fused_step import dot3, lane_dot
+
     n_r = reps.shape[0]
     srow = lane_dot(reps, reps)
     firsts, seconds = [], []
@@ -118,6 +124,8 @@ rep_top2_counts.launches = 0
 def _knn_math(qp, bins, reps, bvalid, k: int):
     """The reference's ``_knn_math`` on a chunk of bins: ((c00, c01, c02,
     c11, c12, c22) each (BB, cq), cnt (BB, cq))."""
+    from icp_tpu_torch.kernels.fused_step import _bf16_round, dot3, lane_dot
+
     qp = qp - reps[:, None, :]
     bins = bins - reps[:, None, :]
     sq_b = lane_dot(bins, bins)

@@ -28,7 +28,11 @@ import torch
 from icp_tpu_torch.kernels.knn_moments import (bin_counts, bin_knn_moments,
                                                rep_top2_counts)
 from icp_tpu_torch.ops.sampling import LM_GRID
-from icp_tpu_torch.rbc.grouping import group_rows_by_bin
+
+# rbc.grouping is imported inside _knn_rbc_tail, as in icp_tpu.ops.normals:
+# the rbc package re-exports rbc.construct, which imports the kernels, and
+# kernels.fused_step imports ops.distance, whose package re-exports this
+# module.
 
 KNN_BRUTE_MAX = 16384  # "knn" above this many points takes the RBC estimator
 
@@ -256,6 +260,8 @@ def _knn_rbc_tail(p: torch.Tensor, valid: torch.Tensor, rep_ids: torch.Tensor,
     NaN (K8 drops them from every neighbourhood), the original ids as a
     float payload (exact below 2^24 points).
     """
+    from icp_tpu_torch.rbc.grouping import group_rows_by_bin
+
     m = p.shape[0]
     mean_occ = m // n_r
     cq = max(((3 * mean_occ // 2 + 7) // 8) * 8, 16)

@@ -73,3 +73,14 @@ def sample_representatives(points8: torch.Tensor, n_r: int,
     :func:`get_representatives`'s)."""
     idx = sample_representative_indices(points8.shape[0], n_r, grid, device=points8.device)
     return points8[idx.long()]
+
+
+def representative_landmark_indices(n_ry: int, n_rx: int, device=None) -> torch.Tensor:
+    """(n_ry * n_rx,) int32 flat indices, in the 128x128 landmark grid, of
+    the representatives :func:`get_representatives` samples (each
+    representative is a landmark), on ``device``."""
+    step_x = LM_GRID // n_rx
+    step_y = LM_GRID // n_ry
+    ys = torch.arange(n_ry, device=device) * step_y + (step_y // 2) - 1
+    xs = torch.arange(n_rx, device=device) * step_x + (step_x // 2) - 1
+    return (ys[:, None] * LM_GRID + xs[None, :]).reshape(-1).to(torch.int32)

@@ -43,7 +43,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from icp_tpu_torch.kernels import bin_search, brute_nn, fused_gn, fused_step, native, table_build
+from icp_tpu_torch.kernels import bin_search, brute_nn  # the K5 and K6 wrappers
+from icp_tpu_torch.kernels import fused_gn, fused_step, native, table_build
 from icp_tpu_torch.parallel.distributed import initialize_multihost
 from icp_tpu_torch.parallel.mesh import make_mesh
 from icp_tpu_torch.parallel.sharded import make_sharded_register
@@ -58,12 +59,12 @@ def _counters() -> dict:
     on the sharded path; the others must stay at 0 there."""
     return {"bin_table": table_build.bin_table,
             "bin_point_moments": fused_step.bin_point_moments,
-            "bin_search": bin_search.bin_search,
+            "bin_search": bin_search,
             "rep_assign_counts": fused_step.rep_assign_counts,
             "rep_assign": fused_step.rep_assign,
             "bin_min_dists": fused_step.bin_min_dists,
             "bin_gn_moments": fused_gn.bin_gn_moments,
-            "brute_nn": brute_nn.brute_nn}
+            "brute_nn": brute_nn}
 
 
 def _run_task(task: dict, mesh) -> dict:

@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
 import json
 import subprocess
 import time
@@ -199,7 +200,8 @@ def _search_kernels(dev, rounds: int = 3) -> dict:
     from icp_tpu_torch import ICPConfig, ICPParams, Objective, icp_step
     from icp_tpu_torch.icp.run import build_index
     from icp_tpu_torch.icp.state import identity_state
-    from icp_tpu_torch.kernels import bin_search as bs
+    # The module, not the wrapper the package exports under its name.
+    bs = importlib.import_module("icp_tpu_torch.kernels.bin_search")
     from icp_tpu_torch.kernels import knn_moments as km
     from icp_tpu_torch.ops import normals as nm
     from icp_tpu_torch.rbc import search as search_mod

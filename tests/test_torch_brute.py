@@ -6,6 +6,8 @@ On the CPU the wrapper takes its twin; the kernel is checked on the card by
 tests/test_torch_gpu.py and chip_smoke.py.
 """
 
+import importlib
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -13,9 +15,11 @@ import torch
 
 from icp_tpu.kernels.brute_nn import brute_nn_pallas, nearest_neighbor_brute_pallas
 from icp_tpu.ops import distance as JD
-from icp_tpu_torch.kernels import brute_nn as TB
 from icp_tpu_torch.ops import distance as TD
 from tests.utils import make_cloud8
+
+# The module, not the wrapper the package exports under its name.
+TB = importlib.import_module("icp_tpu_torch.kernels.brute_nn")
 
 ALPHA = 180.0
 W8 = np.array([1, 1, 1, 0, ALPHA, ALPHA, ALPHA, 0], np.float32)

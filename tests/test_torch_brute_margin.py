@@ -22,17 +22,21 @@ formula the kernel evaluates on the device) bounds |s~ - s| for every pair.
   every other pair down), picks brute_nn_ref's index and score bitwise.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
 from icp_tpu_torch import ICPConfig, ICPParams, icp_step
 from icp_tpu_torch.icp.state import identity_state
-from icp_tpu_torch.kernels import brute_nn as TB
 from icp_tpu_torch.ops import distance
 from icp_tpu_torch.runtime.config import Correspondence
 from icp_tpu_torch.sensors.synthetic import synthetic_pair, wavy_surface_pair
 from icp_tpu_torch.sensors.brute_sets import ALPHA, ADVERSARIAL, adversarial, lane_order_scores
+
+# The module, not the wrapper the package exports under its name.
+TB = importlib.import_module("icp_tpu_torch.kernels.brute_nn")
 
 U32 = 2.0 ** -24
 # csrc/brute_nn.cu's layout: rows per stage, n8 tiles per database split,

@@ -7,6 +7,8 @@ machine with a GPU and no jax it runs as
     python -m pytest tests/test_torch_gpu.py -m cuda --noconftest -q
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -384,7 +386,8 @@ def test_bin_search_kernel_bitwise(cuda_dev, n_r, cq, cb, v):
     (cb up to 4096: several staged tiles per bin, without the
     large-shared-memory opt-in) and capacities off any tile size, with V 3
     taking the scalar payload copy."""
-    from icp_tpu_torch.kernels import bin_search as bs
+    # The module, not the wrapper the package exports under its name.
+    bs = importlib.import_module("icp_tpu_torch.kernels.bin_search")
 
     args = _search_tensors(cuda_dev, n_r, cq, cb, v)
     before = bs.bin_search.launches
@@ -405,7 +408,8 @@ def test_bin_search_kernel_all_equal_slots(cuda_dev, n_r, cq, cb, v):
     query slots a thread) and over several (cb 2048 and 4096, one a thread),
     and the (score, slot) merge must give the first live slot, bitwise the
     twin."""
-    from icp_tpu_torch.kernels import bin_search as bs
+    # The module, not the wrapper the package exports under its name.
+    bs = importlib.import_module("icp_tpu_torch.kernels.bin_search")
 
     args = tuple(torch.from_numpy(x).to(cuda_dev) for x in search_all_equal(n_r, cq, cb, v))
     best, matched = bs.bin_search(*args)
@@ -422,7 +426,8 @@ def test_bin_search_kernel_all_equal_slots(cuda_dev, n_r, cq, cb, v):
 def test_bin_search_kernel_on_unfused_flagship_tables(flagship):
     """K5 on the grouped tables the unfused step builds at the flagship
     shape, bitwise against its twin."""
-    from icp_tpu_torch.kernels import bin_search as bs
+    # The module, not the wrapper the package exports under its name.
+    bs = importlib.import_module("icp_tpu_torch.kernels.bin_search")
     from icp_tpu_torch.ops.distance import metric_weights, pairwise_sq_dists
     from icp_tpu_torch.rbc.grouping import group_rows_by_bin
 
@@ -454,7 +459,8 @@ def _brute_tensors(dev, m, n, seed=0):
 def test_brute_nn_kernel_bitwise(cuda_dev, m, n):
     """K6 against its twin, one database tile and several, any m and n:
     the same index on every query and the same score bitwise."""
-    from icp_tpu_torch.kernels import brute_nn as bn
+    # The module, not the wrapper the package exports under its name.
+    bn = importlib.import_module("icp_tpu_torch.kernels.brute_nn")
 
     q, db, w8 = _brute_tensors(cuda_dev, m, n)
     qw, db, sq_db = ((q * w8).to(cuda_dev), db.to(cuda_dev),
@@ -471,7 +477,8 @@ def test_brute_nn_kernel_bitwise(cuda_dev, m, n):
 def test_brute_nn_kernel_planted_tie_picks_first(cuda_dev):
     """Duplicated database rows tie exactly: the first index wins, across
     stages of 256 rows."""
-    from icp_tpu_torch.kernels import brute_nn as bn
+    # The module, not the wrapper the package exports under its name.
+    bn = importlib.import_module("icp_tpu_torch.kernels.brute_nn")
 
     q, db, w8 = _brute_tensors(cuda_dev, 64, 3000, seed=1)
     db[2500] = db[17]   # another tile
@@ -845,7 +852,8 @@ def test_knn_normals_rbc_reads_nothing_back(cuda_dev):
 def _brute_bitwise(qw, db, sq_db):
     """K6 against its twin: the same index on every query, the same score
     bitwise. Returns the pairs the kernel re-scored per query."""
-    from icp_tpu_torch.kernels import brute_nn as bn
+    # The module, not the wrapper the package exports under its name.
+    bn = importlib.import_module("icp_tpu_torch.kernels.brute_nn")
 
     idx, score, rescored = bn.brute_nn(qw, db, sq_db, count_rescored=True)
     idx_t, score_t = bn.brute_nn_ref(qw, db, sq_db)
@@ -1255,3 +1263,30 @@ def test_sharded_register_world_on_card(cuda_dev, mesh, tmp_path):
         ref = register(fixed.to(cuda_dev), moving.to(cuda_dev), params, config)
         assert float((a["out"]["t"] - ref.t.cpu()).norm()) < t_bar, name
         assert float(qangle_deg(qmul(a["out"]["q"], qconj(ref.q.cpu())))) < a_bar, name
+
+
+# ---- slice 10: the examples ---------------------------------------------------
+
+
+def test_registration_example_on_card(cuda_dev, tmp_path):
+    """``registration --synthetic`` through its ``main(argv)`` on the card:
+    the rendered gate pair (0.008 rad about y, t (10, -6, 8) mm) within
+    10 mm and 0.3 deg (POINT's landmark-lattice floor), K1, K2 and K3
+    launched every step."""
+    from icp_tpu_torch.examples import registration
+    from icp_tpu_torch.icp.quaternion import qangle_deg, qconj, qmul
+    from icp_tpu_torch.kernels import fused_step, table_build
+
+    counters = (fused_step.rep_assign_counts, table_build.bin_table,
+                fused_step.bin_point_moments)
+    for fn in counters:
+        fn.launches = 0
+    st = registration.main(["--synthetic", "--out-dir", str(tmp_path)])
+    k = int(st.k)
+    assert st.t.device.type == "cuda" and 1 <= k < 40
+    q_b = torch.tensor([0.0, np.sin(0.004), 0.0, np.cos(0.004)], dtype=torch.float32)
+    assert float(torch.linalg.vector_norm(st.t.cpu().double() - torch.tensor(
+        [10.0, -6.0, 8.0], dtype=torch.float64))) < 10.0
+    assert float(qangle_deg(qmul(st.q.cpu(), qconj(q_b)))) < 0.3
+    assert all(fn.launches >= k for fn in counters), [fn.launches for fn in counters]
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["fixed.ply", "registered.ply"]

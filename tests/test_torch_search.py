@@ -7,6 +7,8 @@ On the CPU every wrapper takes its twin; the kernels themselves are checked
 on the card by tests/test_torch_gpu.py and chip_smoke.py.
 """
 
+import importlib
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -21,11 +23,13 @@ from icp_tpu.rbc import grouping as JG
 from icp_tpu.rbc import search as JR
 from __graft_entry__ import _synthetic_pair
 from icp_tpu_torch.interop import index_from_numpy
-from icp_tpu_torch.kernels import bin_search as TB
 from icp_tpu_torch.kernels import fused_step as TF
 from icp_tpu_torch.rbc import grouping as TG
 from icp_tpu_torch.rbc import search as TR
 from tests.utils import make_cloud8, random_quat
+
+# The module, not the wrapper the package exports under its name.
+TB = importlib.import_module("icp_tpu_torch.kernels.bin_search")
 
 ALPHA = 150.0
 W8 = np.array([1, 1, 1, 0, ALPHA, ALPHA, ALPHA, 0], np.float32)

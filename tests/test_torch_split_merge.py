@@ -17,6 +17,8 @@ The scores are the twins' (``fused_step.dot3``); the kernels compute the
 same bits with exact-product FMAs (tests/test_torch_exact_fma.py).
 """
 
+import importlib
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -24,10 +26,12 @@ import torch
 
 from icp_tpu.kernels import knn_moments as JK
 from icp_tpu.kernels.bin_search import bin_search_pallas
-from icp_tpu_torch.kernels import bin_search as TB
 from icp_tpu_torch.kernels import knn_moments as TK
 from icp_tpu_torch.kernels.fused_step import dot3, lane_dot
 from icp_tpu_torch.sensors import knn_sets, search_sets
+
+# The module, not the wrapper the package exports under its name.
+TB = importlib.import_module("icp_tpu_torch.kernels.bin_search")
 
 INF = float("inf")
 # The kernels' layouts: K9 stages 256 reps a chunk for 8 warps; K5 stages

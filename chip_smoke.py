@@ -9,16 +9,13 @@ Phases (any failure raises and exits non-zero; there is no CPU fallback):
    the torch and nvcc versions, and build the kernels from csrc/.
 2. Kernels against their plain PyTorch twins on the card, on the tensors of
    the first iteration of the flagship pair (m=16384, n_r=256): K2 bitwise,
-   on sorted rows and gathering the unsorted rows through the order, and on
-   every table the index build and the step make; K1 exact counts and every
-   rid equal to the twin's, K1′ equal to K1; K3 max|dP| <= 1e-4 max|P| and a
-   second launch bitwise equal to the first.
+   on sorted rows and on every table the index build and the step make
+   (K1, K1′ and K3 on these tensors are rows of phase 5).
 3. The slice: register three flagship pairs (seeds 0, 1, 2) with the
    default ICPConfig through icp_tpu_torch.register on CUDA tensors; each
-   must land within 0.05 mm and 0.005 deg of the ground truth, the launch
-   counters must show every kernel ran at least k times, and seed 0 must
-   agree with the same registration on the CPU (the twins) within 0.01 mm
-   and 0.001 deg.
+   must land within 0.05 mm and 0.005 deg of the ground truth and the launch
+   counters must show every kernel ran at least k times (seed 0 on the card
+   against the CPU twins is phase 5's e2e-point row).
 4. Times, printed, never gated: the marginal ms per iteration (thresholds
    0, max_iterations 40 against 8, minimum of alternating rounds for each
    before differencing, as bench.py does) and each kernel against its twin
@@ -42,25 +39,23 @@ landmarks made by icp_tpu_torch.sensors:
     made as bench.py makes them, gicp) registered on CUDA tensors, each
     within t_err < 1.0 mm and a_err < 0.05 deg, with K1, K2, K7 (and K4 for
     robust) launched at least k times; a POINT + HUBER + adaptive
-    registration of the synthetic pair (K3 and K4) within the same gate;
-    the PLANE gate on the card against the CPU twins within 0.05 mm and
-    0.005 deg.
+    registration of the synthetic pair (K3 and K4) within the same gate
+    (the PLANE gate on the card against the CPU twins is phase 5's
+    e2e-plane row).
 4b. The marginal ms per iteration of PLANE and GICP, and K4, K7 and robust
     K3 against their twins.
 
 Slices 3 and 4 (the unfused per-pair pipeline: RBC grouped search with K5,
 BRUTE with K6, and K1′) add:
 
-2c. K5 on the tables the
-    unfused step passes it (taken from icp_step itself) on the synthetic
-    flagship pair (V = 8), on the rendered pair with normals (V = 12) and
-    at n_r = 16 and 8 (cb = 2048, 4096), and on the all-equal bins of
-    sensors/search_sets.py (cb 128, 2048, 4096: every live slot ties, the
-    first must win): scores and payloads bitwise; K3 on what the
-    fused step hands it at n_r 32 and 16 (cq 768 / 1536, cb 1024 / 2048:
-    several query and bin tiles) within 1e-4 of max|P| and repeating
-    bitwise; K7 (three modes) on what GICP steps hand it at n_r 32 and 16
-    under the same rule; K6 on the 16384 x 16384 BRUTE step: every index and
+2c. K5 on the all-equal bins of sensors/search_sets.py (cb 128, 2048,
+    4096: every live slot ties, the first must win): scores and payloads
+    bitwise (K5 on the tables the unfused steps pass it, taken from
+    icp_step itself, at the flagship with V = 8 and 12 and at n_r 16 and 8,
+    are rows of phase 5); K3 on what the fused step hands it at n_r 32 (cq
+    768, cb 1024: several query and bin tiles) within 1e-4 of max|P| and
+    repeating bitwise; K7 (three modes) on what a GICP step hands it at
+    n_r 32 under the same rule (n_r 16 for both: phase 5); K6 on the 16384 x 16384 BRUTE step: every index and
     score bitwise, with the mean and largest number of pairs its filter
     re-scored per query, and on the adversarial sets of sensors/brute_sets.py
     (uncentred coordinates, duplicates, equal-distance shells, scores ulps
@@ -103,11 +98,10 @@ bin_knn_moments) adds, on the reference's wavy-surface pairs
     adversarial sets of sensors/knn_sets.py (ties at the k-th value,
     all-invalid bins, NaN queries, negative d2, k 1 / 12 / 16 / 40, cb 100
     and 1024).
-2f. The per-step kernels of the 16x paths, on the arguments the steps hand
-    them: K1 and K1′ at the LiDAR PLANE step (262144 x 2048) under phase
-    2's rule (every rid equal to the twin's), K7 plane there (cq 192, cb
-    256), K7 plane_sym and gicp at the LiDAR GICP step, and K3 at the 16x
-    POINT step, each P within 1e-4 of max|P| and repeating bitwise.
+2f. K7 plane at the LiDAR PLANE step (cq 192, cb 256) against its twin,
+    within 1e-4 of max|P| and repeating bitwise (K1, K1′ there, K7
+    plane_sym and gicp at the LiDAR GICP step and K3 at the 16x POINT step
+    are rows of phase 5).
 3d. The reference's LiDAR gate: PLANE at m 262144, n_r 2048 with
     normal_mode "knn" (the RBC estimator) within 1.0 mm and 0.05 deg, K9
     and K8 launched, K1, K2 and K7 at least k times; the estimator on the
@@ -205,10 +199,10 @@ Slice 9 (parallel/ on torch.distributed) adds:
     1e-4 of the single-device cost and 1 mm of its ATE, and the sharded
     BA (32 cameras, 4096 points) within 5e-2 of ba_solve. With two or more
     cards the (2, 1) world also runs on NCCL across them, and (2, 2) with
-    four. The ranks' launches count on the main path. In the world of 1,
-    K2 (over n_r_local + 1 bins, the parking bin included), K3 and K5 are
-    held against their twins on what one sharded step hands them at every
-    rank's shapes of the meshes (1, 1), (1, 2) and (2, 1).
+    four. The ranks' launches count on the main path. K2 (over n_r_local +
+    1 bins, the parking bin included), K3 and K5 are held against their
+    twins on what one sharded step hands them at every rank's shapes of the
+    meshes (1, 1), (2, 1), (1, 2) and (2, 2) in phase 5.
 
 Slice 10 (viz/ and the examples) adds:
 
@@ -230,6 +224,25 @@ Slice 10 (viz/ and the examples) adds:
     (0.1 mm, 5e-3 deg) and 0.05 mm / 0.005 deg of the ground truth, K2
     and K3 launched. The examples' own printed reports are kept to their
     last lines.
+
+Slice 11 (the support matrix, runtime/support_matrix.py) adds:
+
+5. support_sweep.sweep: every row of the matrix (each kernel x variant x
+   shape class that a supported configuration reaches: the pyramid levels,
+   the flagship, 4x, 16x, n_r 16 / 8 / 65536, one rank of the sharded
+   flagship on (1, 1), (2, 1), (1, 2) and (2, 2), and the kNN estimator at
+   262144, 16384 and 2^21 + 128 points and at n_r 128 on 262144) launched on
+   the arguments the main path hands its wrapper and held against its twin
+   at the bars above, plus the e2e rows (POINT, PLANE and GICP registered on
+   the card and on the CPU twins: 0.01 mm / 0.001 deg, 0.05 mm / 0.005
+   deg). It fails unless every row is ok and the checked-in table
+   (icp_tpu_torch/runtime/support_table.json) has the sources' and the
+   wrappers' digests and the matrix's keys; it prints the row count and its seconds. Where a
+   row repeats a check that phases 2-3h made, the check is made here only:
+   the flagship K1, K1′, K2 through the order, K3 and K5; K1, K1′, K3 and
+   K7 plane_sym / gicp at 16x; K3, K4, K5 and K7 at n_r 16; K4 and K5 at
+   n_r 8; the sharded ranks' K2, K3 and K5; and the two card-vs-CPU
+   registrations.
 
 The line before the last is {"kernels": [...]}: per kernel its launches on
 the main path, its largest error against the twin over every shape checked
@@ -255,8 +268,10 @@ bound_ms_16384, K4 ms_n_r8, plain_ms_n_r8 and bound_ms_n_r8 on what the
 robust-adaptive POINT step hands it at n_r 8 (cq 3072, cb 4096). K5 adds bound_ms_padded (every padded slot pair and every
 byte of its inputs, its count before its live-slot design) and its time, the twin's and both bounds at
 n_r 16 (ms_n_r16, plain_ms_n_r16, bound_ms_n_r16, bound_ms_padded_n_r16).
-library_ms is null, since
-no single PyTorch call computes any of these functions. The last line is
+matrix_rows counts each
+kernel's rows in phase 5, whose errors join max_abs_err (and, at 16x,
+max_abs_err_16x). library_ms is null, since no single PyTorch call computes
+any of these functions. The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -272,18 +287,20 @@ import time
 import numpy as np
 import torch
 
+# The benchmark's blend and the ground truths of synthetic_pair (+0.02 rad
+# about z, t = (8, -5, 3) mm, for any seed) and of the rendered gate pair
+# (0.008 rad about y, t = (10, -6, 8) mm), shared with the support sweep.
+from icp_tpu_torch.runtime.support_sweep import ALPHA, Q_GT, Q_GT_R, T_GT, T_GT_R
+from icp_tpu_torch.runtime.support_sweep import bitwise as _bitwise
+from icp_tpu_torch.runtime.support_sweep import capture as _capture
+from icp_tpu_torch.runtime.support_sweep import capture_all as _capture_all
+from icp_tpu_torch.runtime.support_sweep import finite_err as _finite_err
+from icp_tpu_torch.runtime.support_sweep import rendered_pair as _rendered_pair
+
 M, N_R = 16384, 256
-ALPHA = 2e2  # the benchmark's blend (bench.py)
-# Ground truth of icp_tpu_torch.sensors.synthetic.synthetic_pair: +0.02 rad about z and
-# t = (8, -5, 3) mm, for any seed.
-Q_GT = np.array([0.0, 0.0, np.sin(0.01), np.cos(0.01)])
-T_GT = np.array([8.0, -5.0, 3.0])
 ROUNDS = 5
-# Ground truth of the rendered gate pair (bench.py), and the errors the JAX
-# reference recorded for each gate on its TPU run (BENCH_r05.json): printed
-# beside the port's, not targets.
-Q_GT_R = np.array([0.0, np.sin(0.004), 0.0, np.cos(0.004)])
-T_GT_R = np.array([10.0, -6.0, 8.0])
+# The errors the JAX reference recorded for each gate of the rendered pair
+# on its TPU run (BENCH_r05.json): printed beside the port's, not targets.
 # A second rendered pair for the PLANE batch: pose C, 0.006 rad about z and
 # t = (-6, 5, 9) mm, is its ground truth.
 Q_GT_C = np.array([0.0, 0.0, np.sin(0.003), np.cos(0.003)])
@@ -339,58 +356,9 @@ def _relative(qa, ta, qb, tb):
     return _qmul(qa_inv, qb), _qmul(_qmul(qa_inv, d), qa)[:3]
 
 
-def _rendered_pair():
-    """bench.py's rendered gate pair as (fixed, moving, moving with 12 %
-    gross outliers) landmark tensors on the CPU."""
-    from icp_tpu_torch.ops.sampling import get_landmarks
-    from icp_tpu_torch.sensors import synthetic
-
-    scene = synthetic.default_scene(device="cpu")
-    pose_b = synthetic.CameraPose(torch.tensor(Q_GT_R, dtype=torch.float32),
-                                  torch.tensor(T_GT_R, dtype=torch.float32))
-    la = get_landmarks(synthetic.render_cloud(
-        scene, synthetic.CameraPose.identity(device="cpu")).reshape(-1, 8)).contiguous()
-    lb = get_landmarks(synthetic.render_cloud(scene, pose_b).reshape(-1, 8)).contiguous()
-    rng = np.random.default_rng(5)
-    dirty = lb.numpy().copy()
-    idx = rng.choice(dirty.shape[0], dirty.shape[0] // 8, replace=False)
-    dirty[idx, :3] += (rng.uniform(250, 500, (len(idx), 3))
-                       * rng.choice([-1.0, 1.0], (len(idx), 3))).astype(np.float32)
-    return la, lb, torch.from_numpy(dirty)
-
-
 def _rel_err(got, want) -> tuple[float, float]:
     """(max|got - want|, max|want|)."""
     return float((got - want).abs().max()), float(want.abs().max())
-
-
-def _capture_all(module, names: tuple[str, ...], call) -> dict:
-    """{name: (args, kwargs)} of the first call that ``call()`` makes to each
-    ``module.name``: the tensors the main path hands the kernels' wrappers."""
-    origs = {name: getattr(module, name) for name in names}
-    seen = {}
-
-    def spy(name):
-        def wrapped(*args, **kwargs):
-            seen.setdefault(name, (args, kwargs))
-            return origs[name](*args, **kwargs)
-        return wrapped
-
-    for name in names:
-        setattr(module, name, spy(name))
-    try:
-        call()
-    finally:
-        for name, orig in origs.items():
-            setattr(module, name, orig)
-    torch.cuda.synchronize()
-    return seen
-
-
-def _capture(module, name: str, call):
-    """The (args, kwargs) of the first call that ``call()`` makes to
-    ``module.name``."""
-    return _capture_all(module, (name,), call)[name]
 
 
 def _check_k2_tables(grouping, what: str, n: int, call) -> float:
@@ -463,34 +431,6 @@ def _check_k8(km, what: str, args, kwargs) -> tuple[float, float]:
     return err, rel
 
 
-def _check_rep_assign(fs, moving8, C, srow, what: str) -> tuple:
-    """K1 and K1′ against their twin: counts equal the bincount of the
-    kernel's own rids, sum to m and equal the twin's; K1's rid equal to the
-    twin's on every row (the same lane-order rounding) and K1′'s equal to
-    K1's. Returns (rid, counts, max|dcounts| against the twin, rids of K1′
-    off the twin)."""
-    m, n_r = moving8.shape[0], C.shape[1]
-    rid_k, counts_k = fs.rep_assign_counts(moving8, C, srow)
-    rid_1 = fs.rep_assign(moving8, C, srow)
-    rid_t, counts_t = fs.rep_assign_counts_ref(moving8, C, srow)
-    torch.cuda.synchronize()
-    if not torch.equal(counts_k, torch.bincount(rid_k, minlength=n_r).to(torch.int32)):
-        raise AssertionError(f"K1 {what}: counts != bincount(rid)")
-    if int(counts_k.sum()) != m:
-        raise AssertionError(f"K1 {what}: counts sum {int(counts_k.sum())} != {m}")
-    n_diff = int((rid_k != rid_t).sum())
-    n_diff1 = int((rid_1 != rid_t).sum())
-    print(f"K1 rep_assign_counts {what} ({m} x {n_r}): {n_diff} of {m} rids differ "
-          f"from the twin (bound 0), counts equal to the twin's: "
-          f"{torch.equal(counts_k, counts_t)}; K1' rep_assign: {n_diff1} differ, "
-          f"equal to K1's: {torch.equal(rid_1, rid_k)}", flush=True)
-    if n_diff or not torch.equal(counts_k, counts_t):
-        raise AssertionError(f"K1 {what}: {n_diff} rids differ from the twin")
-    if not torch.equal(rid_1, rid_k):
-        raise AssertionError(f"K1' {what}: rid differs from K1's")
-    return rid_k, counts_k, int((counts_k - counts_t).abs().max()), n_diff1
-
-
 def _check_moments(what: str, kernel, twin, args, kwargs) -> float:
     """A moment kernel (K3, K7) against its twin: every output within 1e-4
     of its largest entry, and a second launch bitwise equal to the first.
@@ -511,17 +451,6 @@ def _check_moments(what: str, kernel, twin, args, kwargs) -> float:
         if not torch.equal(g, a):
             raise AssertionError(f"{what} {name} does not repeat bitwise")
     return worst
-
-
-def _bitwise(got, want) -> bool:
-    return torch.equal(got.contiguous().view(torch.int32),
-                       want.contiguous().view(torch.int32))
-
-
-def _finite_err(got, want) -> float:
-    """max|got - want| over the entries where both are finite."""
-    fin = torch.isfinite(got) & torch.isfinite(want)
-    return float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
 
 
 def _tensors(x) -> list:
@@ -1132,123 +1061,6 @@ def _ate(t, gt) -> float:
     return float(np.sqrt(np.mean(np.sum((t.double().cpu().numpy() - gt) ** 2, 1))))
 
 
-class _RankStandIn:
-    """One rank of an (n_dp, n_mp) mesh, emulated in this process for the
-    kernel checks: its coordinates, shape and device; its collectives return
-    their input (the checks read what the kernels take and give, not the
-    step's result)."""
-
-    def __init__(self, n_dp: int, n_mp: int, dp: int, mp: int, device):
-        self.shape = {"dp": n_dp, "mp": n_mp}
-        self.dp_index, self.mp_index, self.device = dp, mp, device
-
-    def size(self, axis_name) -> int:
-        return 1
-
-    def psum(self, x, axis_name):
-        return x
-
-    pmin = pmax = psum
-
-
-def _sharded_kernel_checks(dev, mesh, variants, params) -> dict:
-    """K2, K3 and K5 against their twins on what one sharded step hands
-    them (the identity state), at every rank's shapes of the meshes (1, 1),
-    (1, 2) and (2, 1): K2 over n_r_local + 1 bins, the parking bin included
-    (257 bins at the single-device capacity, 129, and 257 at the halved dp
-    capacity); K3 for POINT, K5 for PLANE, GICP and robust-adaptive PLANE.
-    K2 and K5 bitwise, K3 within 1e-4 of max|P| and repeating bitwise.
-
-    The (1, 1) step runs on ``mesh``, this process's world of 1. The ranks
-    of (1, 2) and (2, 1) are emulated here (:class:`_RankStandIn`), their
-    phase 1 taken as the nearest of all the representatives with the
-    lowest id on a tie, which is what the two pmins of
-    ``sharded._phase1_owned_bins`` give. Returns max|d| per kernel."""
-    from icp_tpu_torch.icp.state import identity_state
-    # The module, not the wrapper the package exports under its name.
-    bs = importlib.import_module("icp_tpu_torch.kernels.bin_search")
-    from icp_tpu_torch.kernels import fused_step as fs
-    from icp_tpu_torch.ops.distance import pairwise_sq_dists
-    from icp_tpu_torch.parallel import sharded
-    from icp_tpu_torch.rbc import grouping
-    from icp_tpu_torch.rbc import search as search_mod
-
-    def owned_bins(index):
-        def phase1(local, tm, prm, n_r_local, rank):
-            rid = torch.argmin(pairwise_sq_dists(tm, index.reps, prm.alpha), dim=1)
-            rid = rid.to(torch.int32) - rank.mp_index * n_r_local
-            return torch.where((rid >= 0) & (rid < n_r_local), rid,
-                               torch.full_like(rid, n_r_local))
-        return phase1
-
-    spied = ((grouping, "bin_table"), (sharded, "bin_point_moments"),
-             (search_mod, "bin_search"))
-    errs = {"bin_table": 0.0, "bin_point_moments": 0.0, "bin_search": 0.0}
-    ranks = [((1, 1), 0, 0, mesh)] + [
-        (shape, dp, mp, _RankStandIn(*shape, dp, mp, dev))
-        for shape in ((1, 2), (2, 1)) for dp in range(shape[0]) for mp in range(shape[1])]
-    prm = params.to(dev)
-    for (n_dp, n_mp), dp, mp, rank in ranks:
-        for name in ("point", "plane", "gicp", "robust"):
-            config, f, m = variants[name][:3]
-            n_r_local = config.n_r // n_mp
-            cap = sharded.sharded_query_capacity(config, n_dp)
-            index, mov, mnorm = sharded.sharded_inputs(f, m, prm, config, rank)
-            seen = {attr: [] for _, attr in spied}
-            origs = [(mod, attr, getattr(mod, attr)) for mod, attr in spied]
-
-            def spy(attr, orig):
-                def wrapped(*args, **kwargs):
-                    seen[attr].append((args, kwargs))
-                    return orig(*args, **kwargs)
-                return wrapped
-
-            for mod, attr, orig in origs:
-                setattr(mod, attr, spy(attr, orig))
-            phase1 = sharded._phase1_owned_bins
-            if rank is not mesh:
-                sharded._phase1_owned_bins = owned_bins(index)
-            try:
-                sharded.sharded_icp_step(identity_state(torch.float32, dev), mov, index, prm,
-                                         config, n_r_local, cap, rank, mnormals_local=mnorm)
-            finally:
-                sharded._phase1_owned_bins = phase1
-                for mod, attr, orig in origs:
-                    setattr(mod, attr, orig)
-            torch.cuda.synchronize()
-            what = f"sharded {name} mesh ({n_dp}, {n_mp}) rank ({dp}, {mp})"
-            kernel = "bin_point_moments" if name == "point" else "bin_search"
-            if len(seen["bin_table"]) != 1 or len(seen[kernel]) != 1:
-                raise AssertionError(f"{what}: {len(seen['bin_table'])} K2 and "
-                                     f"{len(seen[kernel])} {kernel} calls, expected 1 each")
-            (a, kw), = seen["bin_table"]
-            starts, n_rows = a[1], kw["order"].numel()
-            if starts.numel() != n_r_local + 1 or kw["capacity"] != cap:
-                raise AssertionError(f"{what}: K2 over {starts.numel()} bins of capacity "
-                                     f"{kw['capacity']}, expected {n_r_local + 1} of {cap}")
-            errs["bin_table"] = max(errs["bin_table"], _check_k2(
-                f"{what} ({n_rows - int(starts[-1])} of {n_rows} queries parked)", a, kw))
-            (a, kw), = seen[kernel]
-            if kernel == "bin_point_moments":
-                errs[kernel] = max(errs[kernel], _check_moments(
-                    f"K3 {what} (cq {cap})", fs.bin_point_moments, fs.bin_point_moments_ref,
-                    a, kw))
-            else:
-                best_k, matched_k = bs.bin_search(*a)
-                best_t, matched_t = bs.bin_search_ref(*a)
-                torch.cuda.synchronize()
-                ok = _bitwise(best_k, best_t) and _bitwise(matched_k, matched_t)
-                errs[kernel] = max(errs[kernel], _finite_err(best_k, best_t),
-                                   _finite_err(matched_k, matched_t))
-                print(f"K5 bin_search {what}: qg_w {tuple(a[0].shape)}, payload "
-                      f"{tuple(a[3].shape)}; scores and payloads bitwise: {ok}", flush=True)
-                if not ok:
-                    raise AssertionError(f"K5 {what} differs from its twin")
-    print(f"phase 3h kernels against their twins at the sharded shapes: max|d| {errs}",
-          flush=True)
-    return errs
-
-
 def sharded_phase(dev, smi, drive_call, require_launched, launches, slam_graph,
                   slam_gt) -> None:
     """Phase 3h: slice 9, the sharded paths (``icp_tpu_torch.parallel``) at
@@ -1268,10 +1080,9 @@ def sharded_phase(dev, smi, drive_call, require_launched, launches, slam_graph,
     gate's graph, dense; the 600-node ring, PCG) and the sharded BA, against
     the single-device solvers on the card. With two or more cards the (2,
     1) world also runs on NCCL across cards (and (2, 2) with four).
-    In the world of 1, :func:`_sharded_kernel_checks` holds K2, K3 and K5
-    against their twins at every rank's shapes of (1, 1), (1, 2) and (2, 1).
-    Raises on any failed check, a failed rank or a missed deadline.
-    Returns the kernels' max|d| from those checks."""
+    K2, K3 and K5 are held against their twins at every rank's shapes of
+    (1, 1), (2, 1), (1, 2) and (2, 2) in phase 5 (the support matrix).
+    Raises on any failed check, a failed rank or a missed deadline."""
     import tempfile
 
     import torch.distributed as dist
@@ -1349,7 +1160,6 @@ def sharded_phase(dev, smi, drive_call, require_launched, launches, slam_graph,
             check(name, st, wall, ran, "mesh (1, 1), NCCL")
             for k, n in ran.items():
                 sharded_launches[k] = sharded_launches.get(k, 0) + n
-        errs = _sharded_kernel_checks(dev, mesh, variants, params)
     finally:
         dist.destroy_process_group()
     print(f"phase 3h world of 1: {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -1452,7 +1262,6 @@ def sharded_phase(dev, smi, drive_call, require_launched, launches, slam_graph,
     print(f"phase 3h launches on the sharded path, every rank: "
           f"{ {k: n for k, n in sharded_launches.items() if n} }", flush=True)
     print(f"phase 3h sharded: {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return errs
 
 
 def _quiet(fn, *args, tail: int = 2, **kw):
@@ -1634,6 +1443,7 @@ def main() -> None:
     from icp_tpu_torch.ops.sampling import sample_representative_indices
     from icp_tpu_torch.rbc import grouping
     from icp_tpu_torch.rbc import search as search_mod
+    from icp_tpu_torch.runtime import support_matrix, support_sweep
     from icp_tpu_torch.sensors.synthetic import synthetic_pair as _synthetic_pair
     from icp_tpu_torch.sensors.synthetic import wavy_surface_pair
     from icp_tpu_torch.sensors import brute_sets, knn_sets, search_sets
@@ -1676,7 +1486,8 @@ def main() -> None:
     C, srow = fs.prep_rep_assign(index.reps, alpha, G, b_row)
     C = C.contiguous()
 
-    rid_k, counts_k, k1_err, k1p_err = _check_rep_assign(fs, moving, C, srow, "flagship")
+    # K1, K1' and K3 on these tensors are rows of the support matrix (phase 5).
+    rid_k, counts_k = fs.rep_assign_counts(moving, C, srow)
 
     sidx, counts, offsets, valid = grouping.bin_sort_layout(
         rid_k, N_R, cfg.query_capacity, counts=counts_k)
@@ -1684,7 +1495,6 @@ def main() -> None:
     cap_q = {"capacity": cfg.query_capacity}
     k2_err = _check_k2("flagship, sorted rows", (sorted_rows, offsets), cap_q)
     k2_gather = (((moving,), offsets), dict(cap_q, order=sidx))
-    k2_err = max(k2_err, _check_k2("flagship", *k2_gather))
     # Every table the flagship index build (db, ids) and step (moving) make.
     k2_err = max(k2_err, _check_k2_tables(grouping, "flagship build / step", 2, lambda: (
         build_index(fixed, params.to(dev), cfg),
@@ -1694,8 +1504,6 @@ def main() -> None:
     qvalid = valid.to(torch.float32)
     k3_args = (table_k, qvalid, index.reps, index.bins_centered,
                index.sq_b_masked, G, b_row, alpha)
-    k3_err = _check_moments("K3 bin_point_moments flagship", fs.bin_point_moments,
-                            fs.bin_point_moments_ref, k3_args, {"weighted": True})
 
     # ---- 2b. Slice-2 kernels against their twins, rendered pair ------------
     phase("2b")
@@ -1748,12 +1556,17 @@ def main() -> None:
     for n_r in (32, 16, 8):
         k4_cases[f"n_r={n_r}, robust-adaptive POINT step"] = k4_step_args(
             fixed, moving, ICPConfig(n_r=n_r, robust=RobustKernel.HUBER, robust_adaptive=True))
+    # Held in phase 5 (the support matrix's nr16 and nr8 rows); kept here for
+    # 4d's times.
+    in_matrix = {"n_r=16, robust-adaptive POINT step", "n_r=8, robust-adaptive POINT step"}
     for n_r, cq, cb in ((256, 96, 128), (8, 3072, 4096)):
         k4_cases[f"all-equal bins n_r={n_r}"] = tuple(
             torch.from_numpy(x).to(dev) for x in search_sets.min_dists_all_equal(n_r, cq, cb)
         ) + (ALPHA,)
     k4_err = 0.0
     for name, a in k4_cases.items():
+        if name in in_matrix:
+            continue
         got, want = fs.bin_min_dists(*a), fs.bin_min_dists_ref(*a)
         torch.cuda.synchronize()
         same_inf = torch.equal(torch.isfinite(got), torch.isfinite(want))
@@ -1810,20 +1623,9 @@ def main() -> None:
         k5_cases[f"V=8 n_r={n_r} cb={cfg_k.bin_capacity}"] = _capture(
             search_mod, "bin_search", lambda: icp_step(
                 st0, moving, build_index(fixed, prm_d, cfg_k), prm_d, cfg_k))[0]
+    # These four are rows of the support matrix (phase 5: flagship V 8 and
+    # 12, nr16, nr8); kept here for 4d's times.
     k5_err = 0.0
-    for name, a in k5_cases.items():
-        best_k, matched_k = bs.bin_search(*a)
-        best_t, matched_t = bs.bin_search_ref(*a)
-        torch.cuda.synchronize()
-        ok = _bitwise(best_k, best_t) and _bitwise(matched_k, matched_t)
-        k5_err = max(k5_err, _finite_err(best_k, best_t), _finite_err(matched_k, matched_t))
-        live = int(torch.isfinite(a[2]).sum())
-        print(f"K5 bin_search {name}: qg_w {tuple(a[0].shape)}, bins {tuple(a[1].shape)}, "
-              f"payload {tuple(a[3].shape)}; {live} finite of {a[2].numel()} bin slots; "
-              f"{int(torch.isinf(best_t).sum())} +inf scores; scores and payloads "
-              f"bitwise: {ok}", flush=True)
-        if not ok:
-            raise AssertionError(f"K5 {name} differs from its twin")
     # K5 on bins whose live slots all hold one point (sensors/search_sets.py):
     # the warps' partial minima tie, in one staged tile (cb 128) and over
     # several (cb 2048, 4096); the first live slot must win.
@@ -1844,9 +1646,10 @@ def main() -> None:
             raise AssertionError(f"K5 all-equal n_r={n_r} cb={cb} differs from its twin")
 
     # K3 with few, large bins, where it walks several query and bin tiles:
-    # n_r 32 gives cq 768 / cb 1024, n_r 16 cq 1536 / cb 2048.
+    # n_r 32 gives cq 768 / cb 1024 (n_r 16, cq 1536 / cb 2048, is the
+    # support matrix's nr16 row).
     k3c_err = 0.0
-    for n_r in (32, 16):
+    for n_r in (32,):
         cfg_k = ICPConfig(n_r=n_r)
         a, kw = _capture(search_mod, "bin_point_moments", lambda: icp_step(
             st0, moving, build_index(fixed, prm_d, cfg_k), prm_d, cfg_k))
@@ -1857,7 +1660,7 @@ def main() -> None:
 
     # K7 likewise, on what GICP steps of the rendered pair hand it (every
     # mode reads those tables; plane ignores the moving normals).
-    for n_r in (32, 16):
+    for n_r in (32,):
         cfg_k = ICPConfig(n_r=n_r, objective=Objective.GICP, estimate_scale=False)
         a, kw = _capture(search_mod, "bin_gn_moments", lambda: icp_step(
             st0, lb_d, build_index(fa_d, prm_d, cfg_k), prm_d, cfg_k))
@@ -2011,17 +1814,13 @@ def main() -> None:
         st0, wm, build_index(wf, prm_d, cfg_lg), prm_d, cfg_lg))
     k7x_modes = {"plane": k7x_args, "plane_sym": (a, dict(kw, mode="plane_sym")), "gicp": (a, kw)}
     del index_l
+    # K1, K1', K3 and K7 plane_sym / gicp at the 16x step shapes are rows
+    # of the support matrix (phase 5), whose errors join err16 there.
     err16 = {"bin_table": err16_k2}  # K2 at 16x is bitwise (2d)
-    _, _, err16["rep_assign_counts"], err16["rep_assign"] = _check_rep_assign(
-        fs, *k1x_args[0], "LiDAR step")
-    for name, kernel, twin, (a, kw) in (
-            *(("bin_gn_moments", fg.bin_gn_moments, fg.bin_gn_moments_ref, c)
-              for c in k7x_modes.values()),
-            ("bin_point_moments", fs.bin_point_moments, fs.bin_point_moments_ref,
-             k3x_args)):
-        cb = a[4 if name == "bin_gn_moments" else 3].shape[1]
-        err16[name] = max(err16.get(name, 0.0), _check_moments(
-            f"{name} 16x (mg {tuple(a[0].shape)}, cb {cb}, {kw})", kernel, twin, a, kw))
+    a, kw = k7x_args
+    err16["bin_gn_moments"] = _check_moments(
+        f"bin_gn_moments 16x LiDAR PLANE step (mg {tuple(a[0].shape)}, cb "
+        f"{a[4].shape[1]}, {kw})", fg.bin_gn_moments, fg.bin_gn_moments_ref, a, kw)
 
     # ---- 3. The slice: three flagship registrations ------------------------
     phase("3")
@@ -2076,22 +1875,9 @@ def main() -> None:
         require_launched(ran, ("rep_assign_counts", "bin_table", "bin_point_moments"),
                          k, f"seed {seed}")
 
-    before = {name: fn.launches for name, fn in counters.items()}
-    st_cpu = register(torch.from_numpy(fixed_np), torch.from_numpy(moving_np),
-                      params, cfg)
-    if any(fn.launches != before[name] for name, fn in counters.items()):
-        raise AssertionError("a CPU registration launched a kernel")
+    # Seed 0 on the card against the CPU twins is the support matrix's
+    # e2e-point row (phase 5).
     from icp_tpu_torch.icp.quaternion import qangle_deg, qconj, qmul
-
-    st_gpu = results[0]
-    dt = float(np.linalg.norm(st_gpu.t.double().cpu().numpy()
-                              - st_cpu.t.double().numpy()))
-    dang = float(qangle_deg(qmul(st_gpu.q.cpu(), qconj(st_cpu.q))))
-    print(f"seed 0 card vs CPU twins: k {int(st_gpu.k)} vs {int(st_cpu.k)} "
-          f"(JAX reference on CPU: 10), |dt|={dt:.6f} mm, dangle={dang:.7f} deg",
-          flush=True)
-    if not (dt <= 0.01 and dang <= 0.001):
-        raise AssertionError("card and CPU registrations disagree")
 
     # ---- 3b. Slice 2: the bench gates on the rendered pair -----------------
     phase("3b")
@@ -2132,17 +1918,8 @@ def main() -> None:
         raise AssertionError("POINT + HUBER: registration off the ground truth")
     require_launched(ran, ("bin_point_moments", "bin_min_dists"), k, "POINT + HUBER")
 
-    before = {name: fn.launches for name, fn in counters.items()}
-    st_cpu = register(la, lb, params, gates["plane"][0])
-    if any(fn.launches != before[name] for name, fn in counters.items()):
-        raise AssertionError("a CPU registration launched a kernel")
-    st_gpu = gate_states["plane"]
-    dt = float(np.linalg.norm(st_gpu.t.double().cpu().numpy() - st_cpu.t.double().numpy()))
-    dang = float(qangle_deg(qmul(st_gpu.q.cpu(), qconj(st_cpu.q))))
-    print(f"gate plane card vs CPU twins: k {int(st_gpu.k)} vs {int(st_cpu.k)}, "
-          f"|dt|={dt:.6f} mm, dangle={dang:.7f} deg", flush=True)
-    if not (dt <= 0.05 and dang <= 0.005):
-        raise AssertionError("PLANE card and CPU registrations disagree")
+    # The PLANE gate on the card against the CPU twins is the support
+    # matrix's e2e-plane row (phase 5).
 
     # ---- 3c. Slices 3-4: BRUTE and the unfused pipeline --------------------
     phase("3c")
@@ -2419,11 +2196,7 @@ def main() -> None:
 
     # ---- 3h. Slice 9: the sharded paths -------------------------------------------
     phase("3h")
-    sharded_errs = sharded_phase(dev, smi, drive_call, require_launched, launches,
-                                 slam_graph, slam_gt)
-    k2_err = max(k2_err, sharded_errs["bin_table"])
-    k3c_err = max(k3c_err, sharded_errs["bin_point_moments"])
-    k5_err = max(k5_err, sharded_errs["bin_search"])
+    sharded_phase(dev, smi, drive_call, require_launched, launches, slam_graph, slam_gt)
 
     # ---- 3i. Slice 10: the examples ----------------------------------------------
     phase("3i")
@@ -2606,6 +2379,47 @@ def main() -> None:
         print(f"{key}: kernel {k_ms} ms, plain twin {t_ms} ms, bound {bound[0]} ms "
               f"({bound[1]})", flush=True)
 
+    # ---- 5. The support matrix ----------------------------------------------
+    phase("5")
+    t5 = time.perf_counter()
+    matrix = support_sweep.sweep(dev, log=lambda line: print(line, flush=True))
+    with open(support_matrix.TABLE_PATH) as f:
+        table = json.load(f)
+    rows = support_matrix.rows_by_key()
+    keys = set(rows)
+    failed = sorted(key for key, r in matrix.items() if not r["ok"])
+    print(f"phase 5 support matrix: {len(matrix)} rows on the card, {len(failed)} failed; "
+          f"the checked-in table's digest {table['digest']}, the sources' "
+          f"{native.source_digest()}", flush=True)
+    if failed:
+        raise AssertionError(f"support matrix rows failed on the card: {failed}")
+    if (table["digest"] != native.source_digest()
+            or table["wrappers_digest"] != support_matrix.wrappers_digest()):
+        raise AssertionError("the support table was written by other kernel sources or "
+                             "wrappers: run python3 -m icp_tpu_torch.runtime.support_sweep "
+                             "--write")
+    if not set(matrix) == set(table["rows"]) == keys:
+        raise AssertionError("the support table's rows are not the matrix's: "
+                             f"{sorted(set(matrix) ^ set(table['rows']))}")
+    print(f"phase 5 rows: {len(matrix)}", flush=True)
+    print(f"phase 5 seconds: {time.perf_counter() - t5:.1f}", flush=True)
+    # Each kernel's largest error over its rows; the 16x class's apart.
+    matrix_err, matrix_rows = {}, {}
+    for key, r in matrix.items():
+        if r["kernel"] is None:
+            continue
+        matrix_rows[r["kernel"]] = matrix_rows.get(r["kernel"], 0) + 1
+        matrix_err[r["kernel"]] = max(matrix_err.get(r["kernel"], 0.0), r["err"])
+        if rows[key].shape_class == "16x":
+            err16[r["kernel"]] = max(err16.get(r["kernel"], 0.0), r["err"])
+    k1_err, k1p_err = matrix_err["rep_assign_counts"], matrix_err["rep_assign"]
+    k3_err = matrix_err["bin_point_moments"]
+    k2_err, k4_err = max(k2_err, matrix_err["bin_table"]), max(k4_err, matrix_err["bin_min_dists"])
+    k5_err, k6_err = max(k5_err, matrix_err["bin_search"]), max(k6_err, matrix_err["brute_nn"])
+    k7_err = max(k7_err, matrix_err["bin_gn_moments"])
+    k8_err = max(k8_err, matrix_err["bin_knn_moments"])
+    k9_err = max(k9_err, matrix_err["rep_top2_counts"])
+
     meta = {
         "rep_assign_counts": ("icp_tpu_torch/csrc/rep_assign_counts.cu",
                               "icp_tpu/kernels/fused_step.py:372", k1_err),
@@ -2665,7 +2479,7 @@ def main() -> None:
                 "launches": launches[name], "max_abs_err": max(err, err16.get(name, 0)),
                 "ms": times[name][0], "plain_ms": times[name][1],
                 "bound_ms": times[name][2], "bound_by": times[name][3],
-                "library_ms": None}
+                "library_ms": None, "matrix_rows": matrix_rows[name]}
                | ({"max_abs_err_16x": err16[name]} if name in err16 else {})
                | ({"ms_16x": times[at16[name]][0], "bound_ms_16x": times[at16[name]][2]}
                   if name in at16 else {})

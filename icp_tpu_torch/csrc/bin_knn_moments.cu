@@ -50,14 +50,25 @@
 // per query; the warp's d2 row (computed once, lane-strided) and its
 // selection buffer live in shared memory (2 cb floats a warp; the block
 // takes fewer warps where cb is large, so shared memory grows with cb,
-// never with cq x cb). The d2 cross takes one multiply and two FMAs per
-// bf16 part product sum: each product of two bf16 parts is exact in
-// float32, so an FMA rounds where the twin's add does (common.cuh,
-// dot3_8_fma), and so does the scaled subtraction (score_fma). The W-sums
+// never with cq x cb). Where even one warp's area does not fit (cb above
+// ~4150 on an H100, as an explicit small n_r gives: cb 6144 at n_r 128 on
+// 262144 points), or the query tiles would pass the grid's second
+// dimension, the same arrays live in a global workspace that the wrapper
+// allocates, one area a block: each block takes a bin and a span of its
+// query tiles, staged once, and the items run in launches of as many blocks
+// as there are areas. Shared memory then does not depend on cb, no grid
+// dimension on cq, and the arithmetic, and so every output bit, is the same.
+// The d2 cross takes one multiply and two FMAs per bf16 part product sum:
+// each product of two bf16 parts is exact in float32, so an FMA rounds
+// where the twin's add does (common.cuh, dot3_8_fma), and so does the
+// scaled subtraction (score_fma). The W-sums
 // run over the compacted admitted slots (~k of cb) on 27 lanes: lane
 // 9 g + e sums entry e (M2's six, then S1's three) over the slots t = g mod
 // 3 in slot order, the three groups join in a fixed order, and two shuffles
 // bring S1 to the M2 lanes.
+#include <algorithm>
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
@@ -130,19 +141,40 @@ __device__ float select_kth(const float* row, float* sel, int n, int kk,
   return warp_max(v);
 }
 
+// Floats of a block's area: 3 float4 a slot, then each warp's d2 row and
+// selection buffer.
+__host__ __device__ inline size_t area_floats(int cb, int warps) {
+  return static_cast<size_t>(cb) * (kStageFloats + 2 * warps);
+}
+
+// kWs false: the area is dynamic shared memory and block (x, y) takes bin x
+// and query tile y. kWs true: block x takes item item0 + x of the bin-major
+// (bin, span of `span` query tiles) order, in the area
+// ws + x * area_floats(cb, warps).
+template <bool kWs>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 bin_knn_moments_kernel(const float* __restrict__ qp, int ld_q,
                        const float* __restrict__ bins,
                        const float* __restrict__ reps,
                        const unsigned char* __restrict__ bvalid, int n_r,
-                       int cq, int cb, int k, float* __restrict__ out) {
+                       int cq, int cb, int k, float* __restrict__ out,
+                       float* ws, int item0, int span) {
   extern __shared__ float4 smem4[];
   __shared__ int warp_live[kMaxWarps];
-  float4* hi_sq = smem4;         // [cb] bf16 hi halves of the centred c, |c|^2
+  const int warps = blockDim.x >> 5;
+  const int tile = warps * kQueriesPerWarp;
+  int b = blockIdx.x, ti = blockIdx.y;
+  float4* area = smem4;
+  if (kWs) {
+    const int per_bin = ((cq + tile - 1) / tile + span - 1) / span;
+    const int item = item0 + blockIdx.x;
+    b = item / per_bin;
+    ti = (item - b * per_bin) * span;
+    area = reinterpret_cast<float4*>(ws + blockIdx.x * area_floats(cb, warps));
+  }
+  float4* hi_sq = area;          // [cb] bf16 hi halves of the centred c, |c|^2
   float4* lo_h = hi_sq + cb;     // [cb] bf16 lo halves
   float4* cc = lo_h + cb;        // [cb] the centred candidates
-  const int warps = blockDim.x >> 5;
-  const int b = blockIdx.x;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   float* row = reinterpret_cast<float*>(cc + cb) + warp * 2 * cb;  // [cb] d2 row
@@ -189,9 +221,10 @@ bin_knn_moments_kernel(const float* __restrict__ qp, int ld_q,
   const int ui = kUi[e];
   const int uj = kUj[e];
   const size_t plane = static_cast<size_t>(n_r) * cq;
-  const int tile = warps * kQueriesPerWarp;
-  const int q_end = min(cq, (blockIdx.y + 1) * tile);
-  for (int i = blockIdx.y * tile + warp; i < q_end; i += warps) {
+  // A span of tiles ends at cq at the latest, computed without overflow.
+  const int q_end = kWs ? ti * tile + min(cq - ti * tile, span * tile)
+                        : min(cq, (ti + 1) * tile);
+  for (int i = ti * tile + warp; i < q_end; i += warps) {
     const float* qrow = qp + (static_cast<size_t>(b) * cq + i) * ld_q;
     float q[3], q_hi[3], q_lo[3];
 #pragma unroll
@@ -278,35 +311,85 @@ bin_knn_moments_kernel(const float* __restrict__ qp, int ld_q,
   }
 }
 
+// The launch for capacities (n_r, cq, cb) on the current device: warps a
+// block and dynamic shared memory, or, where a block's area does not fit in
+// shared memory or the query tiles pass the grid's second dimension, the
+// areas of the workspace (blocks a launch), its floats and the query tiles
+// a block spans.
+struct Plan {
+  int warps;
+  size_t smem;
+  int ws_blocks;
+  size_t ws_floats;
+  int span;
+};
+
+int n_tiles(int cq, int warps) {
+  const int tile = warps * kQueriesPerWarp;
+  return (cq + tile - 1) / tile;
+}
+
+Plan plan(int n_r, int cq, int cb) {
+  // The static warp_live beside the area.
+  const int limit = icp::smem_optin() - static_cast<int>(kMaxWarps * sizeof(int));
+  // Fewer warps where cb is large: each holds 2 cb floats beside the stage.
+  Plan p{kMaxWarps, 0, 0, 0, 1};
+  while (p.warps > 1 && area_floats(cb, p.warps) * sizeof(float) > static_cast<size_t>(limit))
+    --p.warps;
+  p.smem = area_floats(cb, p.warps) * sizeof(float);
+  if (p.smem <= static_cast<size_t>(limit) && n_tiles(cq, p.warps) <= icp::kMaxGridY) return p;
+  // The workspace: eight warps a block, four blocks an SM a launch, fewer
+  // where the workspace would pass 512 MiB; the blocks share the bins out,
+  // each bin's query tiles split in equal spans among its share.
+  p.warps = kMaxWarps;
+  p.smem = 0;
+  const size_t per_block = area_floats(cb, kMaxWarps);
+  const long long budget = static_cast<long long>((size_t{1} << 27) / per_block);
+  p.ws_blocks = static_cast<int>(std::max(1LL, std::min(4LL * icp::sm_count(), budget)));
+  p.ws_floats = per_block * static_cast<size_t>(p.ws_blocks);
+  const int share = std::max(1, p.ws_blocks / std::max(n_r, 1));
+  p.span = (n_tiles(cq, kMaxWarps) + share - 1) / share;
+  return p;
+}
+
 }  // namespace
+
+// Floats of the global workspace that icp_bin_knn_moments needs at these
+// capacities (0: none, the block's area fits in shared memory).
+extern "C" int icp_bin_knn_moments_workspace(int n_r, int cq, int cb, long long* floats) {
+  *floats = static_cast<long long>(plan(n_r, cq, cb).ws_floats);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int icp_bin_knn_moments(const float* qp, int ld_q, const float* bins,
                                    const float* reps, const unsigned char* bvalid,
-                                   int n_r, int cq, int cb, int k, float* out,
+                                   int n_r, int cq, int cb, int k, float* out, float* ws,
                                    void* stream) {
-  int dev = 0, limit = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  limit -= static_cast<int>(kMaxWarps * sizeof(int));  // the static warp_live
-  // Fewer warps where cb is large: each holds 2 cb floats beside the stage.
-  int warps = kMaxWarps;
-  auto bytes = [cb](int w) {
-    return static_cast<size_t>(cb) * (kStageFloats + 2 * w) * sizeof(float);
-  };  // 3 float4 a slot, then each warp's d2 row and selection buffer
-  while (warps > 1 && bytes(warps) > static_cast<size_t>(limit)) --warps;
-  const size_t smem = bytes(warps);
-  if (smem > static_cast<size_t>(limit)) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
+  const Plan p = plan(n_r, cq, cb);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (n_r <= 0 || cq <= 0) return static_cast<int>(cudaGetLastError());
+  if (p.ws_floats > 0) {
+    if (ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const int per_bin = (n_tiles(cq, p.warps) + p.span - 1) / p.span;
+    const long long n_items = static_cast<long long>(n_r) * per_bin;
+    if (n_items > INT_MAX) {
+      return icp::launch_limit("bin_knn_moments (%d, %d, %d): %lld work items, over 2^31 - 1",
+                               n_r, cq, cb, n_items);
+    }
+    for (int item0 = 0; item0 < n_items; item0 += p.ws_blocks) {
+      const int blocks = static_cast<int>(std::min<long long>(p.ws_blocks, n_items - item0));
+      bin_knn_moments_kernel<true><<<blocks, p.warps * 32, 0, st>>>(
+          qp, ld_q, bins, reps, bvalid, n_r, cq, cb, k, out, ws, item0, p.span);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (p.smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        bin_knn_moments_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        bin_knn_moments_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(p.smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int tile = warps * kQueriesPerWarp;
-  if (n_r > 0 && cq > 0) {
-    const dim3 grid(n_r, (cq + tile - 1) / tile);
-    bin_knn_moments_kernel<<<grid, warps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-        qp, ld_q, bins, reps, bvalid, n_r, cq, cb, k, out);
-  }
+  bin_knn_moments_kernel<false><<<dim3(n_r, n_tiles(cq, p.warps)), p.warps * 32, p.smem, st>>>(
+      qp, ld_q, bins, reps, bvalid, n_r, cq, cb, k, out, nullptr, 0, 1);
   return static_cast<int>(cudaGetLastError());
 }

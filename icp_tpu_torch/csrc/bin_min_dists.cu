@@ -91,6 +91,11 @@ extern "C" int icp_bin_min_dists(const float* mg, int ld_mg,
   }
   if (n_r > 0 && cq > 0) {
     const dim3 grid(n_r, (cq + kQTile - 1) / kQTile);
+    if (grid.y > static_cast<unsigned>(icp::kMaxGridY)) {
+      return icp::launch_limit(
+          "bin_min_dists (%d, %d, %d): %u query tiles of %d, over the grid's second "
+          "dimension %d", n_r, cq, cb, grid.y, kQTile, icp::kMaxGridY);
+    }
     bin_min_dists_kernel<<<grid, kThreads, smem,
                            static_cast<cudaStream_t>(stream)>>>(
         mg, ld_mg, qvalid, reps, bins_c, sq_b_masked, G, b_row, scal, cq, cb,

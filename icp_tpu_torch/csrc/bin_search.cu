@@ -184,6 +184,11 @@ extern "C" int icp_bin_search(const float* qg_w, const float* bins_c,
     const int kq = cb > kBTile ? 1 : 3;
     const size_t smem = static_cast<size_t>(smem_floats(cb, kq)) * sizeof(float);
     const dim3 grid(n_r, (cq + 32 * kq - 1) / (32 * kq));
+    if (grid.y > static_cast<unsigned>(icp::kMaxGridY)) {
+      return icp::launch_limit(
+          "bin_search (%d, %d, %d): %u query tiles of %d, over the grid's second dimension %d",
+          n_r, cq, cb, grid.y, 32 * kq, icp::kMaxGridY);
+    }
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (kq == 1) {
       bin_search_kernel<1><<<grid, kThreads, smem, st>>>(

@@ -91,6 +91,16 @@ extern "C" int icp_bin_table(const float* s0, int ld0, int d0, const float* s1,
   if (n_r <= 0 || capacity <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
   const dim3 grid(n_r, (capacity + kThreads - 1) / kThreads);
   const size_t smem = static_cast<size_t>(kThreads) * width * sizeof(float);
+  if (smem > static_cast<size_t>(icp::smem_optin())) {
+    return icp::launch_limit(
+        "bin_table (%d, %d, %d): rows of %d lanes need %zu bytes of shared memory a block, "
+        "over the card's %d", n_r, capacity, width, width, smem, icp::smem_optin());
+  }
+  if (grid.y > static_cast<unsigned>(icp::kMaxGridY)) {
+    return icp::launch_limit(
+        "bin_table (%d, %d, %d): %u tiles of %d slots, over the grid's second dimension %d",
+        n_r, capacity, width, grid.y, kThreads, icp::kMaxGridY);
+  }
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         bin_table_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

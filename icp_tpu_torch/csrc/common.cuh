@@ -19,6 +19,19 @@
 
 namespace icp {
 
+// Launch limits (launch_limits.cu). An entry point whose shapes pass a
+// limit of the card launches nothing and returns kLaunchLimit, which no
+// CUDA status equals, after launch_limit() has left the reason, with the
+// limit and the shape, for icp_launch_limit_message(); the loader raises it
+// as a ValueError.
+constexpr int kLaunchLimit = -1;
+constexpr int kMaxGridY = 65535;  // a grid's second dimension
+int launch_limit(const char* fmt, ...);
+// The current device's opt-in dynamic shared memory a block and its SM
+// count, read once per device.
+int smem_optin();
+int sm_count();
+
 // Robust M-estimator kinds, as ``robust_kind`` of the wrappers passes them.
 enum Robust : int { kNone = 0, kHuber = 1, kTukey = 2, kTrimmed = 3 };
 

@@ -23,7 +23,7 @@
 //   current chunk is searched, then split into bf16 halves and stored (the
 //   split is done on staging, so the loads go through registers rather than
 //   cp.async). Shared memory no longer grows with n_r, apart from the
-//   histogram: two blocks fit on an SM at n_r 2048.
+//   histogram while it fits: two blocks fit on an SM at n_r 2048.
 // - Each thread keeps the bf16 halves of kQ queries in registers, so every
 //   staged rep feeds kQ pairs, with a running (best, index) per query and a
 //   strict < (the first minimum of the TPU kernel's min + iota select).
@@ -33,8 +33,11 @@
 //   lower index), which is the global first minimum.
 // - Counts go to a shared-memory histogram with integer atomics and then to
 //   the global (n_r,) counts, zeroed by the wrapper: exact and independent
-//   of order. K1' is the same template with the histogram compiled out, so
-//   its rid equals K1's bitwise.
+//   of order. Where the n_r histogram does not fit beside the stages (n_r
+//   above ~49 400 on an H100), each rid is counted with an integer atomic
+//   straight into the global counts, which is as exact. K1' is the same
+//   template with the histogram compiled out, so its rid equals K1's
+//   bitwise.
 #include "common.cuh"
 
 namespace {
@@ -72,7 +75,9 @@ __device__ __forceinline__ void store_rep(float* stage, int i, const float (&c)[
   stage[kChunk * 16 + i] = s;
 }
 
-template <bool kCounts>
+// kCounts: count the rids; kSharedHist: through a shared histogram (else
+// straight to the global counts).
+template <bool kCounts, bool kSharedHist>
 __global__ void __launch_bounds__(kThreads, 2)
 rep_assign_counts_kernel(const float* __restrict__ moving8,
                          const float* __restrict__ C,
@@ -80,12 +85,13 @@ rep_assign_counts_kernel(const float* __restrict__ moving8,
                          int* __restrict__ rid, int* __restrict__ counts) {
   extern __shared__ __align__(16) float smem[];
   float* stages = smem;                                    // [2][kStageFloats]
-  int* hist = reinterpret_cast<int*>(smem + 2 * kStageFloats);  // [n_r]
+  // [n_r] in shared memory, or the global counts themselves.
+  int* hist = kSharedHist ? reinterpret_cast<int*>(smem + 2 * kStageFloats) : counts;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int q0 = blockIdx.x * kQB;
 
-  if (kCounts) {
+  if (kCounts && kSharedHist) {
     for (int i = threadIdx.x; i < n_r; i += kThreads) hist[i] = 0;
   }
 
@@ -169,7 +175,7 @@ rep_assign_counts_kernel(const float* __restrict__ moving8,
       if (kCounts) atomicAdd(&hist[br], 1);
     }
   }
-  if (!kCounts) return;
+  if (!kCounts || !kSharedHist) return;
   __syncthreads();
   for (int i = threadIdx.x; i < n_r; i += kThreads) {
     const int h = hist[i];
@@ -180,19 +186,19 @@ rep_assign_counts_kernel(const float* __restrict__ moving8,
 template <bool kCounts>
 int launch(const float* moving8, const float* C, const float* srow, int m,
            int n_r, int* rid, int* counts, cudaStream_t stream) {
-  const size_t smem = 2 * kStageFloats * sizeof(float) +
-                      (kCounts ? static_cast<size_t>(n_r) * sizeof(int) : 0);
+  const size_t stage = 2 * kStageFloats * sizeof(float);
+  const size_t with_hist = stage + static_cast<size_t>(n_r) * sizeof(int);
+  const bool shared_hist = kCounts && with_hist <= static_cast<size_t>(icp::smem_optin());
+  const size_t smem = shared_hist ? with_hist : stage;
+  auto kernel = shared_hist ? rep_assign_counts_kernel<kCounts, true>
+                            : rep_assign_counts_kernel<kCounts, false>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        rep_assign_counts_kernel<kCounts>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = (m + kQB - 1) / kQB;
-  if (blocks > 0) {
-    rep_assign_counts_kernel<kCounts><<<blocks, kThreads, smem, stream>>>(
-        moving8, C, srow, m, n_r, rid, counts);
-  }
+  if (blocks > 0) kernel<<<blocks, kThreads, smem, stream>>>(moving8, C, srow, m, n_r, rid, counts);
   return static_cast<int>(cudaGetLastError());
 }
 

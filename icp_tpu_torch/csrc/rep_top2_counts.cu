@@ -30,7 +30,7 @@
 //   staging, so the wrapper launches nothing else. The stages are double
 //   buffered: the next chunk is loaded into registers while the current
 //   one is searched, then split and stored. Shared memory does not grow
-//   with n_r apart from the 2 x n_r histogram.
+//   with n_r apart from the 2 x n_r histogram, and that only while it fits.
 // - Each thread keeps the bf16 halves of kQ points in registers (8 where
 //   there are points enough to fill the card, else 4), so every staged rep
 //   feeds kQ pairs, with a running (b1, r1, b2, r2) per point and
@@ -45,7 +45,12 @@
 //   (a strict < against +inf fails), so every +inf entry is (+inf, 0).
 // - Counts go to a shared-memory histogram with integer atomics, then to the
 //   global (2, n_r) counts, zeroed by the wrapper: exact, and the bincounts
-//   of the kernel's own ids.
+//   of the kernel's own ids. Where the 2 x n_r histogram does not fit beside
+//   the stages (n_r above ~24 900 on an H100, as the estimator's automatic
+//   n_r reaches from 2^21 + 128 points on), each id is counted with an
+//   integer atomic straight into the global counts: the counts are exact
+//   integers, so the order of the atomics changes nothing and the ids and
+//   counts stay bitwise the twin's.
 #include "common.cuh"
 
 namespace {
@@ -104,8 +109,9 @@ __device__ __forceinline__ void insert2(float v, int r, float& B1, int& R1, floa
   }
 }
 
-// kQ points per thread.
-template <int kQ>
+// kQ points per thread; kSharedHist: the counts go through a shared
+// histogram (else straight to the global counts).
+template <int kQ, bool kSharedHist>
 __global__ void __launch_bounds__(kThreads, 2)
 rep_top2_counts_kernel(const float* __restrict__ p3,
                        const float* __restrict__ reps, int m, int n_r,
@@ -114,12 +120,15 @@ rep_top2_counts_kernel(const float* __restrict__ p3,
   constexpr int kQB = 32 * kQ;  // points per block
   extern __shared__ __align__(16) float smem[];
   float* stages = smem;                                          // [2][kStageFloats]
-  int* hist = reinterpret_cast<int*>(smem + area_floats(kQ));  // [2][n_r]
+  // [2][n_r] in shared memory, or the global counts themselves.
+  int* hist = kSharedHist ? reinterpret_cast<int*>(smem + area_floats(kQ)) : counts;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int q0 = blockIdx.x * kQB;
 
-  for (int i = threadIdx.x; i < 2 * n_r; i += kThreads) hist[i] = 0;
+  if (kSharedHist) {
+    for (int i = threadIdx.x; i < 2 * n_r; i += kThreads) hist[i] = 0;
+  }
 
   // The points' bf16 halves, kQ per thread: point q0 + j * 32 + lane.
   float a_hi[kQ][3], a_lo[kQ][3], b1[kQ], b2[kQ];
@@ -201,6 +210,7 @@ rep_top2_counts_kernel(const float* __restrict__ p3,
       atomicAdd(&hist[n_r + R2], 1);
     }
   }
+  if (!kSharedHist) return;
   __syncthreads();
   for (int i = threadIdx.x; i < 2 * n_r; i += kThreads) {
     const int h = hist[i];
@@ -211,18 +221,18 @@ rep_top2_counts_kernel(const float* __restrict__ p3,
 template <int kQ>
 int launch(const float* p3, const float* reps, int m, int n_r, int* i1, int* i2,
            int* counts, cudaStream_t stream) {
-  const size_t smem = area_floats(kQ) * sizeof(float) + 2 * static_cast<size_t>(n_r) * sizeof(int);
+  const size_t stage = area_floats(kQ) * sizeof(float);
+  const size_t with_hist = stage + 2 * static_cast<size_t>(n_r) * sizeof(int);
+  const bool shared_hist = with_hist <= static_cast<size_t>(icp::smem_optin());
+  const size_t smem = shared_hist ? with_hist : stage;
+  auto kernel = shared_hist ? rep_top2_counts_kernel<kQ, true> : rep_top2_counts_kernel<kQ, false>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        rep_top2_counts_kernel<kQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = (m + 32 * kQ - 1) / (32 * kQ);
-  if (blocks > 0) {
-    rep_top2_counts_kernel<kQ><<<blocks, kThreads, smem, stream>>>(p3, reps, m, n_r, i1,
-                                                                   i2, counts);
-  }
+  if (blocks > 0) kernel<<<blocks, kThreads, smem, stream>>>(p3, reps, m, n_r, i1, i2, counts);
   return static_cast<int>(cudaGetLastError());
 }
 

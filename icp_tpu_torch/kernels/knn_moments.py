@@ -31,6 +31,9 @@ adds the two sums at the end, which keeps ~16 significant bits per term
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from icp_tpu_torch.kernels import native
@@ -177,6 +180,17 @@ def bin_knn_moments_ref(qp: torch.Tensor, bins: torch.Tensor,
     return comps, torch.cat([o[1] for o in outs])
 
 
+@functools.cache
+def _workspace_floats(device_index: int, n_r: int, cq: int, cb: int) -> int:
+    """Floats of K8's global workspace at these capacities on this device
+    (0: its arrays fit in shared memory)."""
+    floats = ctypes.c_longlong(0)
+    with torch.cuda.device(device_index):
+        native.check(native.load_library().icp_bin_knn_moments_workspace(
+            n_r, cq, cb, ctypes.byref(floats)), "icp_bin_knn_moments_workspace")
+    return floats.value
+
+
 def bin_knn_moments(qp: torch.Tensor, bins: torch.Tensor, reps: torch.Tensor,
                     bvalid: torch.Tensor, *, k: int, chunk: int = 128):
     """Per-query kNN covariance components; K8, replacing
@@ -207,10 +221,15 @@ def bin_knn_moments(qp: torch.Tensor, bins: torch.Tensor, reps: torch.Tensor,
     native.require(bvalid, "bvalid", (n_r, cb), torch.bool, dev)
     out = torch.empty((7, n_r, cq), dtype=f32, device=dev)
     lib = native.load_library()
+    # Where a block's candidates, d2 rows and selection buffers do not fit
+    # in shared memory (large cb), or the query tiles pass the grid's second
+    # dimension (cq past ~131000), the kernel keeps them in this workspace.
+    floats = _workspace_floats(dev.index, n_r, cq, cb)
+    ws = torch.empty((floats,), dtype=f32, device=dev) if floats else None
     native.check(lib.icp_bin_knn_moments(
         qp.data_ptr(), ld_q, bins.data_ptr(), reps.data_ptr(), bvalid.data_ptr(),
-        n_r, cq, cb, k, out.data_ptr(), native.stream_ptr(dev)),
-        "icp_bin_knn_moments")
+        n_r, cq, cb, k, out.data_ptr(), None if ws is None else ws.data_ptr(),
+        native.stream_ptr(dev)), "icp_bin_knn_moments")
     bin_knn_moments.launches += 1
     return tuple(out[u] for u in range(6)), out[6]
 

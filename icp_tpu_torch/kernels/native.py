@@ -9,8 +9,12 @@ unchanged one loads the existing library. Nothing here runs on import, and
 CPU tensors never reach this module: their wrappers take the plain twins.
 
 Every C entry point launches on the stream it is given, allocates nothing,
-does not synchronize and returns ``cudaGetLastError()``; :func:`check`
-raises on any non-zero value.
+does not synchronize and returns ``cudaGetLastError()``, or
+:data:`LAUNCH_LIMIT` when its shapes pass a limit of the card (a block's
+shared memory, a grid's second dimension) and it launched nothing; the C
+side knows its tiles and the card, and names the limit and the shape.
+:func:`check` raises a ``ValueError`` with that text for the latter and a
+``RuntimeError`` on any other non-zero value.
 """
 
 from __future__ import annotations
@@ -68,9 +72,17 @@ SIGNATURES = {
     "icp_brute_nn": [_P, _P, _P, _P, _F, _F, _I, _I, _P, _P, _P, _P],
     # p3, reps, m, n_r, i1, i2, counts, stream
     "icp_rep_top2_counts": [_P, _P, _I, _I, _P, _P, _P, _P],
-    # qp, ld_q, bins, reps, bvalid, n_r, cq, cb, k, out (7, n_r, cq), stream
-    "icp_bin_knn_moments": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # qp, ld_q, bins, reps, bvalid, n_r, cq, cb, k, out (7, n_r, cq),
+    # workspace (or null), stream
+    "icp_bin_knn_moments": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # n_r, cq, cb, floats of the workspace icp_bin_knn_moments needs (out)
+    "icp_bin_knn_moments_workspace": [_I, _I, _I, ctypes.POINTER(ctypes.c_longlong)],
 }
+
+# The status of an entry point that launched nothing because its shapes
+# pass a launch limit (csrc/common.cuh, kLaunchLimit); no CUDA status is
+# negative.
+LAUNCH_LIMIT = -1
 
 build_info: dict = {}  # filled by load_library(): path, seconds, log
 _build_allowed = True
@@ -131,15 +143,23 @@ def _build(tmp: Path, lib_path: Path) -> str:
     return log
 
 
-@functools.cache
-def load_library() -> ctypes.CDLL:
-    """Compile (if this source hash was never built, and building is not
-    forbidden) and load the kernels."""
+def source_digest() -> str:
+    """sha256 of ``NVCC_FLAGS`` and every ``csrc/*.cu`` and ``*.cuh`` (name
+    and bytes): the key of the build directory, and of the support table
+    (``runtime/support_matrix.py``) that records what these sources did on
+    the card."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    out_dir = BUILD_ROOT / digest.hexdigest()[:16]
+    return digest.hexdigest()
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Compile (if this source hash was never built, and building is not
+    forbidden) and load the kernels."""
+    out_dir = BUILD_ROOT / source_digest()[:16]
     lib_path = out_dir / "libicp_tpu_torch.so"
     t0 = time.perf_counter()
     log = ""
@@ -160,13 +180,18 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.icp_launch_limit_message.argtypes = []
+    lib.icp_launch_limit_message.restype = ctypes.c_char_p
     build_info.update(path=str(lib_path), seconds=time.perf_counter() - t0,
                       log=log)
     return lib
 
 
 def check(status: int, name: str) -> None:
-    """Raise if a C entry point reported a CUDA error."""
+    """Raise if a C entry point reported a launch limit (``ValueError``,
+    naming the limit and the shape) or a CUDA error."""
+    if status == LAUNCH_LIMIT:
+        raise ValueError(load_library().icp_launch_limit_message().decode())
     if status != 0:
         raise RuntimeError(f"{name}: CUDA error {status}")
 

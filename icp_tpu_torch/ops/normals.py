@@ -203,6 +203,17 @@ def _rep_choices_strip(p: torch.Tensor, reps: torch.Tensor, multi_assign: int,
     return rep_ids, counts
 
 
+def knn_rbc_capacities(m: int, n_r: int = 0) -> tuple[int, int]:
+    """(representatives, query capacity) of :func:`knn_normals_rbc` on m
+    points: n_r 0 is its automatic choice (about m/128 mean occupancy, a
+    power of two, at least 64), never more than m; the capacity is 1.5x the
+    mean occupancy per choice."""
+    if n_r == 0:
+        n_r = max(64, 1 << max(0, (m // 128 - 1).bit_length()))
+    n_r = min(n_r, m)
+    return n_r, max(((3 * (m // n_r) // 2 + 7) // 8) * 8, 16)
+
+
 def knn_normals_rbc(points8: torch.Tensor, k: int = 16, n_r: int = 0,
                     multi_assign: int = 2, chunk: int = 128) -> torch.Tensor:
     """RBC-accelerated PCA normals for large unorganized clouds.
@@ -234,9 +245,7 @@ def knn_normals_rbc(points8: torch.Tensor, k: int = 16, n_r: int = 0,
     """
     p = points8[:, :3].contiguous()
     m = p.shape[0]
-    if n_r == 0:
-        n_r = max(64, 1 << max(0, (m // 128 - 1).bit_length()))
-    n_r = min(n_r, m)
+    n_r, _ = knn_rbc_capacities(m, n_r)
     valid = torch.sum(torch.abs(p), dim=-1) > 0
     stride = m // n_r
     reps = p[_morton_order(p)[stride // 2::stride][:n_r].long()]
@@ -263,8 +272,7 @@ def _knn_rbc_tail(p: torch.Tensor, valid: torch.Tensor, rep_ids: torch.Tensor,
     from icp_tpu_torch.rbc.grouping import group_rows_by_bin
 
     m = p.shape[0]
-    mean_occ = m // n_r
-    cq = max(((3 * mean_occ // 2 + 7) // 8) * 8, 16)
+    _, cq = knn_rbc_capacities(m, n_r)
     p_nan = torch.where(valid[:, None], p, float("nan"))
     ids = torch.arange(m, dtype=p.dtype, device=p.device)[:, None]
     g1 = group_rows_by_bin(rep_ids[:, 0].contiguous(), n_r, cq, (p_nan, ids),

@@ -1290,3 +1290,148 @@ def test_registration_example_on_card(cuda_dev, tmp_path):
     assert float(qangle_deg(qmul(st.q.cpu(), qconj(q_b)))) < 0.3
     assert all(fn.launches >= k for fn in counters), [fn.launches for fn in counters]
     assert sorted(p.name for p in tmp_path.iterdir()) == ["fixed.ply", "registered.ply"]
+
+
+# ---- slice 11: launches past the shared-memory size of a block ----------------
+
+
+def test_rep_top2_counts_at_n_r_32768(cuda_dev):
+    """K9 at the estimator's automatic n_r of 2^21 + 128 points (32768),
+    where its 2 x n_r count histogram no longer fits in shared memory: i1,
+    i2 and counts bitwise the twin's, the counts the bincounts of its ids."""
+    from icp_tpu_torch.kernels import knn_moments as km
+    from icp_tpu_torch.ops import normals as normals_mod
+    from icp_tpu_torch.runtime.support_sweep import capture
+    from icp_tpu_torch.sensors.synthetic import wavy_surface_pair
+
+    cloud = torch.from_numpy(wavy_surface_pair(2 ** 21 + 128)[0]).to(cuda_dev)
+    p3, reps = capture(normals_mod, "rep_top2_counts",
+                       lambda: normals_mod.knn_normals_rbc(cloud))[0]
+    assert reps.shape[0] == 32768
+    got = km.rep_top2_counts(p3, reps)
+    want = km.rep_top2_counts_ref(p3, reps, chunk=2048)
+    torch.cuda.synchronize()
+    for j in range(2):
+        assert torch.equal(got[2][j], km.bin_counts(got[j], 32768))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_knn_normals_rbc_on_2m_points(cuda_dev):
+    """knn_normals_rbc on 2^21 + 128 points (K9 at n_r 32768) against the
+    same estimator with K9 and K8 swapped for their twins: the same zero
+    set, median |cos| > 0.999."""
+    from icp_tpu_torch.kernels import knn_moments as km
+    from icp_tpu_torch.ops import normals as normals_mod
+    from icp_tpu_torch.sensors.synthetic import wavy_surface_pair
+
+    cloud = torch.from_numpy(wavy_surface_pair(2 ** 21 + 128)[0]).to(cuda_dev)
+    n_k = normals_mod.knn_normals_rbc(cloud)
+    orig = normals_mod.rep_top2_counts, normals_mod.bin_knn_moments
+    normals_mod.rep_top2_counts = lambda p, r: km.rep_top2_counts_ref(p, r, chunk=2048)
+    normals_mod.bin_knn_moments = km.bin_knn_moments_ref
+    try:
+        n_t = normals_mod.knn_normals_rbc(cloud)
+    finally:
+        normals_mod.rep_top2_counts, normals_mod.bin_knn_moments = orig
+    nonzero = n_t.norm(dim=-1) > 0
+    assert torch.equal(n_k.norm(dim=-1) > 0, nonzero)
+    assert float((n_k * n_t).sum(-1).abs()[nonzero].median()) > 0.999
+
+
+def test_bin_knn_moments_at_cb_6144(cuda_dev):
+    """K8 on what knn_normals_rbc(n_r=128) hands it on a 262144-point sweep
+    (cq 3072, cb 6144: its arrays in the global workspace): n bitwise, the
+    components within 1e-5 of each query's largest, repeating bitwise."""
+    from icp_tpu_torch.kernels import knn_moments as km
+    from icp_tpu_torch.ops import normals as normals_mod
+    from icp_tpu_torch.runtime.support_sweep import capture
+    from icp_tpu_torch.sensors.synthetic import wavy_surface_pair
+
+    cloud = torch.from_numpy(wavy_surface_pair(262144)[0]).to(cuda_dev)
+    args, kw = capture(normals_mod, "bin_knn_moments",
+                       lambda: normals_mod.knn_normals_rbc(cloud, n_r=128))
+    assert (args[0].shape[1], args[1].shape[1]) == (3072, 6144)
+    comps, cnt = km.bin_knn_moments(*args, **kw)
+    again = km.bin_knn_moments(*args, **kw)
+    comps_t, cnt_t = km.bin_knn_moments_ref(*args, **dict(kw, chunk=2))
+    torch.cuda.synchronize()
+    ck, ct = torch.stack(comps), torch.stack(comps_t)
+    assert torch.equal(cnt, cnt_t)
+    assert float(((ck - ct).abs() / ct.abs().amax(dim=0).clamp(min=1e-30)).max()) <= 1e-5
+    assert torch.equal(ck, torch.stack(again[0])) and torch.equal(cnt, again[1])
+
+
+def test_rep_assign_counts_at_n_r_65536(cuda_dev):
+    """K1 and K1' at n_r 65536 on 262144 rows, where K1's count histogram no
+    longer fits in shared memory: every rid the twin's, the counts exact."""
+    from icp_tpu_torch import ICPConfig
+    from icp_tpu_torch.icp.state import identity_state
+    from icp_tpu_torch.kernels import fused_step as fs
+    from icp_tpu_torch.ops.sampling import sample_representative_indices
+
+    cfg = ICPConfig(m=262144, n_r=65536)
+    fixed, moving = (torch.from_numpy(a).to(cuda_dev) for a in synthetic_pair(cfg.m))
+    reps = fixed[sample_representative_indices(cfg.m, cfg.n_r, cfg.rep_grid,
+                                               device=cuda_dev).long()]
+    st = identity_state(torch.float32, cuda_dev)
+    G, b_row = fs.prep_similarity(st.q, st.t, st.s)
+    C, srow = fs.prep_rep_assign(reps, torch.full((), 2e2, device=cuda_dev),
+                                 G.contiguous(), b_row)
+    C = C.contiguous()
+    rid, counts = fs.rep_assign_counts(moving, C, srow)
+    rid1 = fs.rep_assign(moving, C, srow)
+    rid_t = torch.cat([fs.rep_assign_ref(moving[s:s + 256], C, srow)
+                       for s in range(0, cfg.m, 256)])
+    torch.cuda.synchronize()
+    assert torch.equal(rid, rid_t) and torch.equal(rid1, rid)
+    assert torch.equal(counts, torch.bincount(rid_t, minlength=cfg.n_r).to(torch.int32))
+
+
+def test_bin_knn_moments_past_the_grid_limit(cuda_dev):
+    """K8 on what knn_normals_rbc(n_r=2) hands it on 174768 points (cq
+    131080, cb 262160): more query tiles of the shared-memory grid than its
+    second dimension holds, so the workspace path runs it. Against the twin
+    on query slices at the start, across the first span boundary and at the
+    end (the queries are independent): n bitwise, the components within
+    1e-5 of each query's largest."""
+    from icp_tpu_torch.kernels import knn_moments as km
+    from icp_tpu_torch.ops import normals as normals_mod
+    from icp_tpu_torch.runtime.support_sweep import capture
+    from icp_tpu_torch.sensors.synthetic import wavy_surface_pair
+
+    cloud = torch.from_numpy(wavy_surface_pair(174768)[0]).to(cuda_dev)
+    (qp, bins, reps, bvalid), kw = capture(
+        normals_mod, "bin_knn_moments", lambda: normals_mod.knn_normals_rbc(cloud, n_r=2))
+    cq = qp.shape[1]
+    assert (cq, bins.shape[1]) == (131080, 262160)
+    comps, cnt = km.bin_knn_moments(qp, bins, reps, bvalid, **kw)
+    ck = torch.stack(comps)
+    for s in (0, 14576 - 256, cq - 512):
+        comps_t, cnt_t = km.bin_knn_moments_ref(qp[:, s:s + 512], bins, reps, bvalid,
+                                                **dict(kw, chunk=1))
+        ct = torch.stack(comps_t)
+        assert torch.equal(cnt[:, s:s + 512], cnt_t), s
+        rel = (ck[:, :, s:s + 512] - ct).abs() / ct.abs().amax(dim=0).clamp(min=1e-30)
+        assert float(rel.max()) <= 1e-5, s
+
+
+def test_launch_limits_raise_before_launch(cuda_dev):
+    """A shape past a launch limit left after the repairs raises a
+    ValueError from the C launch code that names the limit and the shape,
+    and launches nothing: K2's rows of 456 lanes (shared memory), K2's
+    capacity and K5's query tiles past the grid's second dimension."""
+    from icp_tpu_torch.kernels import table_build as tb
+
+    bs = importlib.import_module("icp_tpu_torch.kernels.bin_search")
+    starts = torch.zeros((1,), dtype=torch.int32, device=cuda_dev)
+    before = tb.bin_table.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        tb.bin_table(torch.zeros((4, 456), device=cuda_dev), starts, capacity=4)
+    with pytest.raises(ValueError, match="second dimension"):
+        tb.bin_table(torch.zeros((4, 3), device=cuda_dev), starts, capacity=128 * 65535 + 1)
+    cq, cb = 65535 * 32 + 1, 513
+    args = (torch.zeros((1, cq, 8), device=cuda_dev), torch.zeros((1, cb, 8), device=cuda_dev),
+            torch.zeros((1, cb), device=cuda_dev), torch.zeros((1, cb, 8), device=cuda_dev))
+    with pytest.raises(ValueError, match="second dimension"):
+        bs.bin_search(*args)
+    assert tb.bin_table.launches == before

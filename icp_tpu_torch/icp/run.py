@@ -12,6 +12,14 @@ that ``max_iterations`` allows runs, and the steps past the stop are frozen,
 so the state is the same bit for bit (the odometry chain enqueues a whole
 sequence that way). :func:`register_batch` runs the same loop over the
 lanes of a batch of pairs.
+
+Spans (``runtime/timing.py``, recorded while switched on): ``icp.register``
+around each :func:`register` and :func:`register_batch` (a registration
+id), ``icp.build_target`` (and ``icp.normals`` inside it, from
+``ops/normals.py``), ``icp.run`` around the loop, ``icp.chunk``
+around the enqueue of each chunk over all lanes and ``icp.host_read``
+around each read of the loop condition. Counter (always):
+``icp.steps_enqueued`` (one a lane a step computed, taken or not).
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from icp_tpu_torch.ops.normals import normals_for
 from icp_tpu_torch.ops.sampling import sample_representative_indices
 from icp_tpu_torch.rbc.construct import RBCIndex, rbc_construct
 from icp_tpu_torch.runtime.config import Correspondence, ICPConfig, ICPParams
+from icp_tpu_torch.runtime.timing import count, span
 
 CHUNK = 8  # steps between host reads of the loop condition
 
@@ -57,11 +66,6 @@ def _run_lanes(movings: list, targets: list, params: ICPParams,
     dev = movings[0].device
     states = list(inits)
     dones = [torch.zeros((), dtype=torch.bool, device=dev) for _ in movings]
-    # The moving normals (symmetric PLANE / GICP) are loop-invariant: once
-    # per registration, not once per step.
-    mnormals = [normals_for(m, config.normal_mode)
-                if config.needs_normals and gn_mode(config) != "plane" else None
-                for m in movings]
 
     def running(s: ICPState, done: torch.Tensor) -> torch.Tensor:
         return torch.logical_and(s.k < config.max_iterations,
@@ -69,18 +73,27 @@ def _run_lanes(movings: list, targets: list, params: ICPParams,
                                                   torch.logical_not(done)))
 
     def any_running() -> bool:  # one host read
-        return bool(torch.stack([running(s, d) for s, d in zip(states, dones)]).any())
+        with span("icp.host_read"):
+            return bool(torch.stack([running(s, d) for s, d in zip(states, dones)]).any())
 
-    chunks = -(-config.max_iterations // CHUNK)
-    while (any_running() if reads else chunks > 0):
-        chunks -= 1
-        for _ in range(CHUNK):
-            for i, (moving8, target) in enumerate(zip(movings, targets)):
-                take = running(states[i], dones[i])
-                new = icp_step(states[i], moving8, target, params, config,
-                               moving_normals=mnormals[i])
-                states[i] = _select(take, new, states[i])
-                dones[i] = torch.where(take, converged(new, params), dones[i])
+    with span("icp.run"):
+        # The moving normals (symmetric PLANE / GICP) are loop-invariant: once
+        # per registration, not once per step.
+        mnormals = [normals_for(m, config.normal_mode)
+                    if config.needs_normals and gn_mode(config) != "plane" else None
+                    for m in movings]
+        chunks = -(-config.max_iterations // CHUNK)
+        while (any_running() if reads else chunks > 0):
+            chunks -= 1
+            count("icp.steps_enqueued", CHUNK * len(movings))
+            with span("icp.chunk"):
+                for _ in range(CHUNK):
+                    for i, (moving8, target) in enumerate(zip(movings, targets)):
+                        take = running(states[i], dones[i])
+                        new = icp_step(states[i], moving8, target, params, config,
+                                       moving_normals=mnormals[i])
+                        states[i] = _select(take, new, states[i])
+                        dones[i] = torch.where(take, converged(new, params), dones[i])
     return states
 
 
@@ -117,11 +130,12 @@ def build_target(fixed8: torch.Tensor, params: ICPParams,
     """The search target of ``config``: an RBC index (RBC), the fixed
     landmarks with their normals (BRUTE with PLANE / GICP), or the bare
     fixed landmarks (BRUTE POINT)."""
-    if config.correspondence is Correspondence.RBC:
-        return build_index(fixed8, params, config)
-    if config.needs_normals:
-        return BruteTarget(db=fixed8, normals=normals_for(fixed8, config.normal_mode))
-    return fixed8
+    with span("icp.build_target"):
+        if config.correspondence is Correspondence.RBC:
+            return build_index(fixed8, params, config)
+        if config.needs_normals:
+            return BruteTarget(db=fixed8, normals=normals_for(fixed8, config.normal_mode))
+        return fixed8
 
 
 def _check_landmarks(fixed8: torch.Tensor, moving8: torch.Tensor, batched: bool) -> None:
@@ -147,9 +161,10 @@ def register(fixed8: torch.Tensor, moving8: torch.Tensor,
       fixed8, moving8: (m, 8) float32 landmarks on one device.
     """
     _check_landmarks(fixed8, moving8, batched=False)
-    fixed8, moving8 = fixed8.contiguous(), moving8.contiguous()
-    params = params.to(fixed8.device)
-    return icp_run(moving8, build_target(fixed8, params, config), params, config)
+    with span("icp.register", registration=True):
+        fixed8, moving8 = fixed8.contiguous(), moving8.contiguous()
+        params = params.to(fixed8.device)
+        return icp_run(moving8, build_target(fixed8, params, config), params, config)
 
 
 def register_batch(fixed8: torch.Tensor, moving8: torch.Tensor,
@@ -171,11 +186,12 @@ def register_batch(fixed8: torch.Tensor, moving8: torch.Tensor,
     if fixed8.shape[0] == 0:
         raise ValueError("register_batch needs at least one pair")
     dev = fixed8.device
-    params = params.to(dev)
-    fixed = [f.contiguous() for f in fixed8]
-    movings = [m.contiguous() for m in moving8]
-    targets = [build_target(f, params, config) for f in fixed]
-    states = _run_lanes(movings, targets, params, config,
-                        [identity_state(moving8.dtype, dev) for _ in movings])
-    return ICPState(**{f.name: torch.stack([getattr(s, f.name) for s in states])
-                       for f in dataclasses.fields(ICPState)})
+    with span("icp.register", registration=True):
+        params = params.to(dev)
+        fixed = [f.contiguous() for f in fixed8]
+        movings = [m.contiguous() for m in moving8]
+        targets = [build_target(f, params, config) for f in fixed]
+        states = _run_lanes(movings, targets, params, config,
+                            [identity_state(moving8.dtype, dev) for _ in movings])
+        return ICPState(**{f.name: torch.stack([getattr(s, f.name) for s in states])
+                           for f in dataclasses.fields(ICPState)})

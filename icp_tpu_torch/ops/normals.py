@@ -28,6 +28,7 @@ import torch
 from icp_tpu_torch.kernels.knn_moments import (bin_counts, bin_knn_moments,
                                                rep_top2_counts)
 from icp_tpu_torch.ops.sampling import LM_GRID
+from icp_tpu_torch.runtime.timing import span
 
 # rbc.grouping is imported inside _knn_rbc_tail, as in icp_tpu.ops.normals:
 # the rbc package re-exports rbc.construct, which imports the kernels, and
@@ -316,13 +317,14 @@ def normals_for(points8: torch.Tensor, mode: str = "auto") -> torch.Tensor:
     unorganized clouds need "knn".
     """
     m = points8.shape[0]
-    if mode == "knn_rbc" or (mode == "knn" and m > KNN_BRUTE_MAX):
-        return knn_normals_rbc(points8)
-    if mode == "knn":
-        return knn_normals(points8)
-    side = int(m ** 0.5)
-    if side * side == m and side >= 8:
-        return grid_normals(points8, side)
-    if mode == "grid":
-        raise ValueError(f"normal_mode='grid' needs a square point count, got m={m}")
-    return points8.new_zeros((m, 3))
+    with span("icp.normals"):
+        if mode == "knn_rbc" or (mode == "knn" and m > KNN_BRUTE_MAX):
+            return knn_normals_rbc(points8)
+        if mode == "knn":
+            return knn_normals(points8)
+        side = int(m ** 0.5)
+        if side * side == m and side >= 8:
+            return grid_normals(points8, side)
+        if mode == "grid":
+            raise ValueError(f"normal_mode='grid' needs a square point count, got m={m}")
+        return points8.new_zeros((m, 3))

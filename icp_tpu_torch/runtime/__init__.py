@@ -8,5 +8,5 @@ from icp_tpu_torch.runtime.config import (
     RotationMode,
     Weighting,
 )
-from icp_tpu_torch.runtime.timing import CPUTimer, ProfilingInfo, device_time, marginal_time
+from icp_tpu_torch.runtime.timing import CPUTimer, ProfilingInfo
 from icp_tpu_torch.runtime.metrics import MetricsSink

@@ -148,11 +148,6 @@ def test_timers_on_the_cpu(tmp_path):
     with TT.CPUTimer() as t:
         torch.ones(1000).sum()
     assert t.span_ms >= 0.0
-    calls = []
-    ms = TT.device_time(lambda x: calls.append(1) or x * 2, torch.ones(8), reps=3, warmup=2)
-    assert ms >= 0.0 and len(calls) == 5
-    per = TT.marginal_time(lambda n: (lambda x: x.repeat(n)), 64, 16, torch.ones(8), reps=2)
-    assert np.isfinite(per)
     with TT.trace(str(tmp_path)) as d:
         torch.ones(100).cumsum(0)
     assert (tmp_path / "trace.json").is_file() and d == str(tmp_path)

@@ -2045,6 +2045,7 @@ def main() -> None:
 
     # ---- 3e. Slice 6: the batch, the pyramid and the app pipelines --------
     phase("3e")
+    from icp_tpu_torch.icp import chunk_graph
     from icp_tpu_torch.icp.pipeline import ICPRegistration, ICPStepByStep
     from icp_tpu_torch.icp.pyramid import register_pyramid
     from icp_tpu_torch.ops.sampling import get_landmarks
@@ -2113,6 +2114,8 @@ def main() -> None:
             return real[name](*a, **kw)
         return wrapped
 
+    # A replay runs the captured kernels and calls no wrapper: capture anew.
+    chunk_graph.clear()
     for name in shapes:
         setattr(search_mod, name, shape_spy(name))
     try:

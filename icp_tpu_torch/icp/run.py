@@ -13,31 +13,47 @@ so the state is the same bit for bit (the odometry chain enqueues a whole
 sequence that way). :func:`register_batch` runs the same loop over the
 lanes of a batch of pairs.
 
+On CUDA tensors a chunk is one CUDA graph (``icp/chunk_graph.py``),
+captured the first time a configuration, number of lanes and set of
+tensor shapes is seen and replayed after that, but for the step paths of
+:data:`EAGER_ROTATIONS`; CPU tensors run the chunk eagerly. Both run one
+function, :func:`_chunk`, and give the same bits.
+
 Spans (``runtime/timing.py``, recorded while switched on): ``icp.register``
 around each :func:`register` and :func:`register_batch` (a registration
 id), ``icp.build_target`` (and ``icp.normals`` inside it, from
 ``ops/normals.py``), ``icp.run`` around the loop, ``icp.chunk``
-around the enqueue of each chunk over all lanes and ``icp.host_read``
-around each read of the loop condition. Counter (always):
-``icp.steps_enqueued`` (one a lane a step computed, taken or not).
+around the enqueue (or the replay) of each chunk over all lanes and
+``icp.host_read`` around each read of the loop condition. Counters
+(always): ``icp.steps_enqueued`` (one a lane a step computed, taken or
+not), ``icp.chunk_eager`` (a chunk enqueued from Python),
+``icp.chunk_graph.replays`` and ``icp.chunk_graph.captures``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import NamedTuple
 
 import torch
 
+from icp_tpu_torch.icp import chunk_graph
 from icp_tpu_torch.icp.quaternion import qangle_deg
 from icp_tpu_torch.icp.state import ICPState, identity_state
 from icp_tpu_torch.icp.step import BruteTarget, Target, gn_mode, icp_step
 from icp_tpu_torch.ops.normals import normals_for
 from icp_tpu_torch.ops.sampling import sample_representative_indices
 from icp_tpu_torch.rbc.construct import RBCIndex, rbc_construct
-from icp_tpu_torch.runtime.config import Correspondence, ICPConfig, ICPParams
+from icp_tpu_torch.runtime.config import (Correspondence, ICPConfig, ICPParams, Objective,
+                                          RotationMode)
 from icp_tpu_torch.runtime.timing import count, span
 
 CHUNK = 8  # steps between host reads of the loop condition
+# POINT steps that solve the rotation with these check the LAPACK status of
+# torch.linalg.svd / torch.linalg.eigh on the host, a read that a CUDA
+# graph's capture forbids: their chunks run eagerly.
+EAGER_ROTATIONS = frozenset({RotationMode.SVD, RotationMode.JACOBI})
 
 
 def converged(state: ICPState, params: ICPParams) -> torch.Tensor:
@@ -55,6 +71,70 @@ def _select(take: torch.Tensor, new: ICPState, old: ICPState) -> ICPState:
         for f in dataclasses.fields(ICPState)})
 
 
+class _Inputs(NamedTuple):
+    """What the loop reads and never writes, one entry a lane."""
+
+    movings: list
+    targets: list
+    params: ICPParams
+    mnormals: list  # the moving normals, or None where the step needs none
+
+
+class _Carry(NamedTuple):
+    """What a chunk advances."""
+
+    states: list
+    dones: list  # 0-d bool: the lane's last step taken passed converged()
+    running: torch.Tensor  # 0-d bool: some lane's loop condition holds
+
+
+def _running(state: ICPState, done: torch.Tensor, config: ICPConfig) -> torch.Tensor:
+    return torch.logical_and(state.k < config.max_iterations,
+                             torch.logical_or(state.k == 0, torch.logical_not(done)))
+
+
+def _carry(states: list, dones: list, config: ICPConfig) -> _Carry:
+    return _Carry(states, dones, torch.stack(
+        [_running(s, d, config) for s, d in zip(states, dones)]).any())
+
+
+def _any_running(carry: _Carry) -> bool:
+    """The host's read of the loop condition."""
+    with span("icp.host_read"):
+        return bool(carry.running)
+
+
+def _chunk(inputs: _Inputs, carry: _Carry, config: ICPConfig) -> _Carry:
+    """CHUNK steps over every lane: a lane whose loop condition is false is
+    frozen by ``torch.where``; no host read. The eager loop and the CUDA
+    graph run this same function."""
+    states, dones = list(carry.states), list(carry.dones)
+    for _ in range(CHUNK):
+        for i, (moving8, target, mnormals) in enumerate(
+                zip(inputs.movings, inputs.targets, inputs.mnormals)):
+            take = _running(states[i], dones[i], config)
+            new = icp_step(states[i], moving8, target, inputs.params, config,
+                           moving_normals=mnormals)
+            states[i] = _select(take, new, states[i])
+            dones[i] = torch.where(take, converged(new, inputs.params), dones[i])
+    return _carry(states, dones, config)
+
+
+def chunk_captured(device: torch.device, config: ICPConfig) -> bool:
+    """Whether :func:`_run_lanes` replays its chunks as a CUDA graph: on
+    CUDA tensors, but for the step paths of :data:`EAGER_ROTATIONS`."""
+    return device.type == "cuda" and not (config.objective is Objective.POINT
+                                          and config.rotation in EAGER_ROTATIONS)
+
+
+def chunk_key(inputs: _Inputs, carry: _Carry, config: ICPConfig) -> tuple:
+    """The graph cache's key: the device, the configuration and the
+    signature (``chunk_graph.signature``) of the inputs and the carry, which
+    holds the number of lanes and every tensor's shape, strides and dtype."""
+    return (carry.running.device, config, chunk_graph.signature(inputs),
+            chunk_graph.signature(carry))
+
+
 def _run_lanes(movings: list, targets: list, params: ICPParams,
                config: ICPConfig, inits: list, reads: bool = True) -> list:
     """The loop of :func:`icp_run` over independent lanes (pairs): each lane
@@ -62,39 +142,36 @@ def _run_lanes(movings: list, targets: list, params: ICPParams,
     false is frozen by ``torch.where`` while the others step. The host reads
     once per chunk whether any lane still runs (with ``reads=False``, never:
     all ``ceil(max_iterations / CHUNK)`` chunks run), so each lane ends with
-    the state and ``k`` that :func:`icp_run` gives its pair alone."""
+    the state and ``k`` that :func:`icp_run` gives its pair alone. Where
+    :func:`chunk_captured`, each chunk is a replay of one CUDA graph, bitwise
+    the eager chunk."""
     dev = movings[0].device
-    states = list(inits)
-    dones = [torch.zeros((), dtype=torch.bool, device=dev) for _ in movings]
-
-    def running(s: ICPState, done: torch.Tensor) -> torch.Tensor:
-        return torch.logical_and(s.k < config.max_iterations,
-                                 torch.logical_or(s.k == 0,
-                                                  torch.logical_not(done)))
-
-    def any_running() -> bool:  # one host read
-        with span("icp.host_read"):
-            return bool(torch.stack([running(s, d) for s, d in zip(states, dones)]).any())
-
     with span("icp.run"):
         # The moving normals (symmetric PLANE / GICP) are loop-invariant: once
         # per registration, not once per step.
         mnormals = [normals_for(m, config.normal_mode)
                     if config.needs_normals and gn_mode(config) != "plane" else None
                     for m in movings]
+        inputs = _Inputs(movings, targets, params, mnormals)
+        carry = _carry(list(inits), [torch.zeros((), dtype=torch.bool, device=dev)
+                                     for _ in movings], config)
+        body = functools.partial(_chunk, config=config)
+        graph = None
+        if chunk_captured(dev, config):
+            graph = chunk_graph.chunk_graph(chunk_key(inputs, carry, config), body,
+                                            inputs, carry)
+            carry = graph.carry  # replays advance it in place
         chunks = -(-config.max_iterations // CHUNK)
-        while (any_running() if reads else chunks > 0):
+        while (_any_running(carry) if reads else chunks > 0):
             chunks -= 1
             count("icp.steps_enqueued", CHUNK * len(movings))
             with span("icp.chunk"):
-                for _ in range(CHUNK):
-                    for i, (moving8, target) in enumerate(zip(movings, targets)):
-                        take = running(states[i], dones[i])
-                        new = icp_step(states[i], moving8, target, params, config,
-                                       moving_normals=mnormals[i])
-                        states[i] = _select(take, new, states[i])
-                        dones[i] = torch.where(take, converged(new, params), dones[i])
-    return states
+                if graph is None:
+                    carry = body(inputs, carry)
+                    count("icp.chunk_eager")
+                else:
+                    graph.replay()
+        return list(carry.states) if graph is None else graph.take().states
 
 
 def icp_run(moving8: torch.Tensor, target: Target, params: ICPParams,

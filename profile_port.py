@@ -85,6 +85,7 @@ def _gate16x(dev, rounds: int = 5) -> dict:
     and with K3's twin (the ``rbc.search`` module's reference swapped)."""
     from chip_smoke import ALPHA, _errors
     from icp_tpu_torch import ICPConfig, ICPParams, register
+    from icp_tpu_torch.icp import chunk_graph
     from icp_tpu_torch.kernels import fused_step as fs
     from icp_tpu_torch.rbc import search
     from icp_tpu_torch.sensors.synthetic import wavy_surface_pair
@@ -96,6 +97,7 @@ def _gate16x(dev, rounds: int = 5) -> dict:
     out = {}
     for name, k3 in (("K3", kernel), ("K3 twin", fs.bin_point_moments_ref)):
         search.bin_point_moments = k3
+        chunk_graph.clear()  # a replay would run the kernel captured before
         try:
             walls = []
             for _ in range(rounds):

@@ -958,10 +958,48 @@ def test_bin_gn_moments_kernel_at_step_shapes(gn_cases, shape, mode):
             assert torch.equal(g, r)
 
 
-@pytest.mark.parametrize("case", ["brute_point", "plane", "gicp", "unfused_point",
-                                  "unfused_plane", "fused_point", "robust_point",
-                                  "robust_plane", "plane_sym", "unfused_gicp",
-                                  "brute_plane"])
+STEP_CASES = ["brute_point", "plane", "gicp", "unfused_point", "unfused_plane", "fused_point",
+              "robust_point", "robust_plane", "plane_sym", "unfused_gicp", "brute_plane"]
+
+
+def _step_case(dev, rendered, case):
+    """(fixed, moving, config) of a step path: BRUTE POINT, the unfused RBC
+    POINT step, the fused POINT step (also with the SVD and Jacobi rotation
+    solves) and POINT + HUBER + adaptive on the flagship pair; the fused
+    PLANE, GICP and symmetric-PLANE steps, PLANE + TRIMMED + adaptive, the
+    unfused PLANE and GICP steps and BRUTE PLANE on the rendered pair."""
+    from icp_tpu_torch import (Correspondence, ICPConfig, Objective, RobustKernel,
+                               RotationMode, Weighting)
+
+    if case in ("brute_point", "unfused_point", "fused_point", "robust_point",
+                "svd_point", "jacobi_point"):
+        fixed, moving = (torch.from_numpy(a).to(dev) for a in synthetic_pair(M))
+        cfg = {"brute_point": ICPConfig(correspondence=Correspondence.BRUTE),
+               "unfused_point": ICPConfig(fused_point=False),
+               "fused_point": ICPConfig(),
+               "robust_point": ICPConfig(robust=RobustKernel.HUBER,
+                                         robust_adaptive=True),
+               "svd_point": ICPConfig(rotation=RotationMode.SVD),
+               "jacobi_point": ICPConfig(rotation=RotationMode.JACOBI)}[case]
+        return fixed, moving, cfg
+    cfg = {"plane": ICPConfig(objective=Objective.PLANE, estimate_scale=False),
+           "gicp": ICPConfig(objective=Objective.GICP, estimate_scale=False),
+           "unfused_plane": ICPConfig(objective=Objective.PLANE, estimate_scale=False,
+                                      fused_gn=False),
+           "robust_plane": ICPConfig(objective=Objective.PLANE,
+                                     weighting=Weighting.REGULAR,
+                                     robust=RobustKernel.TRIMMED, robust_adaptive=True,
+                                     estimate_scale=False),
+           "plane_sym": ICPConfig(objective=Objective.PLANE, plane_symmetric=True,
+                                  estimate_scale=False),
+           "unfused_gicp": ICPConfig(objective=Objective.GICP, estimate_scale=False,
+                                     fused_gn=False),
+           "brute_plane": ICPConfig(objective=Objective.PLANE, estimate_scale=False,
+                                    correspondence=Correspondence.BRUTE)}[case]
+    return rendered["fixed_d"], rendered["moving_d"], cfg
+
+
+@pytest.mark.parametrize("case", STEP_CASES)
 def test_step_chunk_reads_nothing_back(cuda_dev, rendered, case):
     """One 8-step chunk of icp_run makes no call that waits for the stream:
     torch's sync debug mode raises on one. On the flagship pair: BRUTE POINT
@@ -971,35 +1009,12 @@ def test_step_chunk_reads_nothing_back(cuda_dev, rendered, case):
     symmetric-PLANE steps (K7), PLANE + TRIMMED + adaptive (K4 and the
     median before K7), the unfused PLANE and GICP steps (K5) and BRUTE
     PLANE (K6). A first chunk builds the kernels."""
-    from icp_tpu_torch import (Correspondence, ICPConfig, ICPParams, Objective,
-                               RobustKernel, Weighting, icp_step)
+    from icp_tpu_torch import ICPParams, Objective, icp_step
     from icp_tpu_torch.icp.run import CHUNK, _select, build_target, converged
     from icp_tpu_torch.icp.state import identity_state
     from icp_tpu_torch.ops.normals import normals_for
 
-    if case in ("brute_point", "unfused_point", "fused_point", "robust_point"):
-        fixed, moving = (torch.from_numpy(a).to(cuda_dev) for a in synthetic_pair(M))
-        cfg = {"brute_point": ICPConfig(correspondence=Correspondence.BRUTE),
-               "unfused_point": ICPConfig(fused_point=False),
-               "fused_point": ICPConfig(),
-               "robust_point": ICPConfig(robust=RobustKernel.HUBER,
-                                         robust_adaptive=True)}[case]
-    else:
-        fixed, moving = rendered["fixed_d"], rendered["moving_d"]
-        cfg = {"plane": ICPConfig(objective=Objective.PLANE, estimate_scale=False),
-               "gicp": ICPConfig(objective=Objective.GICP, estimate_scale=False),
-               "unfused_plane": ICPConfig(objective=Objective.PLANE, estimate_scale=False,
-                                          fused_gn=False),
-               "robust_plane": ICPConfig(objective=Objective.PLANE,
-                                         weighting=Weighting.REGULAR,
-                                         robust=RobustKernel.TRIMMED, robust_adaptive=True,
-                                         estimate_scale=False),
-               "plane_sym": ICPConfig(objective=Objective.PLANE, plane_symmetric=True,
-                                      estimate_scale=False),
-               "unfused_gicp": ICPConfig(objective=Objective.GICP, estimate_scale=False,
-                                         fused_gn=False),
-               "brute_plane": ICPConfig(objective=Objective.PLANE, estimate_scale=False,
-                                        correspondence=Correspondence.BRUTE)}[case]
+    fixed, moving, cfg = _step_case(cuda_dev, rendered, case)
     params = ICPParams(alpha=2e2).to(cuda_dev)
     target = build_target(fixed, params, cfg)
     mn = (normals_for(moving, cfg.normal_mode)
@@ -1025,6 +1040,197 @@ def test_step_chunk_reads_nothing_back(cuda_dev, rendered, case):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(state.t).all())
+
+
+# ---- the chunk as one CUDA graph ----------------------------------------------
+
+STATE_FIELDS = ("q", "t", "s", "qk", "tk", "sk", "k")
+
+
+def _eager_loop(movings, targets, params, cfg, inits, reads=True):
+    """The chunked loop over lanes written out: 8 steps a chunk enqueued from
+    Python, a lane frozen once its loop condition is false, and one host
+    read of the condition a chunk (with ``reads=False`` every chunk that
+    max_iterations allows). Returns each lane's state."""
+    from icp_tpu_torch import icp_step
+    from icp_tpu_torch.icp.run import CHUNK, _select, converged
+    from icp_tpu_torch.icp.step import gn_mode
+    from icp_tpu_torch.ops.normals import normals_for
+
+    mns = [normals_for(m, cfg.normal_mode)
+           if cfg.needs_normals and gn_mode(cfg) != "plane" else None for m in movings]
+    states = list(inits)
+    dones = [torch.zeros((), dtype=torch.bool, device=m.device) for m in movings]
+
+    def running(state, done):
+        return torch.logical_and(state.k < cfg.max_iterations,
+                                 torch.logical_or(state.k == 0, torch.logical_not(done)))
+
+    chunks = -(-cfg.max_iterations // CHUNK)
+    while (bool(torch.stack([running(s, d) for s, d in zip(states, dones)]).any())
+           if reads else chunks > 0):
+        chunks -= 1
+        for _ in range(CHUNK):
+            for i, (moving, target, mn) in enumerate(zip(movings, targets, mns)):
+                take = running(states[i], dones[i])
+                new = icp_step(states[i], moving, target, params, cfg, moving_normals=mn)
+                states[i] = _select(take, new, states[i])
+                dones[i] = torch.where(take, converged(new, params), dones[i])
+    return states
+
+
+def _assert_states_equal(got, want, what=""):
+    for name in STATE_FIELDS:
+        assert torch.equal(getattr(got, name), getattr(want, name)), (what, name)
+
+
+def _graph_counters():
+    from icp_tpu_torch.runtime.timing import counters
+
+    c = counters()
+    return {name: c.get(name, 0) for name in ("icp.chunk_graph.captures",
+                                              "icp.chunk_graph.replays", "icp.chunk_eager")}
+
+
+def _counted(before):
+    return {name: n - before[name] for name, n in _graph_counters().items()}
+
+
+@pytest.mark.parametrize("case", STEP_CASES + ["svd_point", "jacobi_point"])
+def test_icp_run_graph_equals_eager_chunk_loop(cuda_dev, rendered, case):
+    """icp_run on every step path against the chunked loop written out by
+    hand: q, t, s, qk, tk, sk and k torch.equal. Every chunk is a replay of
+    one graph, captured once; the paths of EAGER_ROTATIONS (the SVD and
+    Jacobi rotation solves) capture nothing and run every chunk eagerly."""
+    from icp_tpu_torch import ICPParams
+    from icp_tpu_torch.icp import chunk_graph
+    from icp_tpu_torch.icp.run import build_target, chunk_captured, icp_run
+    from icp_tpu_torch.icp.state import identity_state
+
+    fixed, moving, cfg = _step_case(cuda_dev, rendered, case)
+    params = ICPParams(alpha=2e2).to(cuda_dev)
+    target = build_target(fixed, params, cfg)
+    (want,) = _eager_loop([moving], [target], params, cfg,
+                          [identity_state(torch.float32, cuda_dev)])
+    chunk_graph.clear()
+    before = _graph_counters()
+    got = icp_run(moving, target, params, cfg)
+    torch.cuda.synchronize()
+    counted = _counted(before)
+    chunks = counted["icp.chunk_graph.replays"] + counted["icp.chunk_eager"]
+    assert chunks == -(-int(want.k) // 8)
+    if case in ("svd_point", "jacobi_point"):
+        assert not chunk_captured(cuda_dev, cfg)
+        assert counted["icp.chunk_graph.captures"] == counted["icp.chunk_graph.replays"] == 0
+    else:
+        assert chunk_captured(cuda_dev, cfg)
+        assert counted["icp.chunk_graph.captures"] == 1 and counted["icp.chunk_eager"] == 0
+    _assert_states_equal(got, want, case)
+
+
+def test_chunk_graph_serves_successive_registrations(cuda_dev):
+    """register of two flagship pairs (synthetic_pair seeds 0 and 1), then of
+    the first with another alpha: one capture serves all three (the static
+    buffers take each call's frames and params), each torch.equal to the
+    loop written out. Another max_iterations is another key: a second
+    capture, and the first key is still held."""
+    from icp_tpu_torch import ICPConfig, ICPParams, register
+    from icp_tpu_torch.icp import chunk_graph
+    from icp_tpu_torch.icp.run import build_target
+    from icp_tpu_torch.icp.state import identity_state
+
+    chunk_graph.clear()
+    before = _graph_counters()
+    pairs = [tuple(torch.from_numpy(a).to(cuda_dev) for a in synthetic_pair(M, seed=s))
+             for s in (0, 1)]
+    calls = [(pairs[0], 2e2, ICPConfig()), (pairs[1], 2e2, ICPConfig()),
+             (pairs[0], 1e2, ICPConfig()), (pairs[1], 2e2, ICPConfig(max_iterations=20)),
+             (pairs[0], 2e2, ICPConfig())]
+    results = []
+    for (fixed, moving), alpha, cfg in calls:
+        params = ICPParams(alpha=alpha)
+        got = register(fixed, moving, params, cfg)
+        params = params.to(cuda_dev)
+        (want,) = _eager_loop([moving], [build_target(fixed, params, cfg)], params, cfg,
+                              [identity_state(torch.float32, cuda_dev)])
+        _assert_states_equal(got, want, (alpha, cfg.max_iterations))
+        results.append(got)
+    counted = _counted(before)
+    assert counted["icp.chunk_graph.captures"] == 2 and counted["icp.chunk_eager"] == 0
+    assert not torch.equal(results[0].t, results[1].t)  # the frames reached the graph
+    _assert_states_equal(results[4], results[0], "the first key, replayed again")
+
+
+def test_register_batch_graph_equals_eager_lanes(cuda_dev):
+    """register_batch of three flagship pairs (seeds 0-2): one capture over
+    three lanes, every lane torch.equal to the three-lane loop written
+    out."""
+    from icp_tpu_torch import ICPConfig, ICPParams, register_batch
+    from icp_tpu_torch.icp import chunk_graph
+    from icp_tpu_torch.icp.run import build_target
+    from icp_tpu_torch.icp.state import identity_state
+
+    pairs = [synthetic_pair(M, seed=s) for s in range(3)]
+    fixed, moving = (torch.from_numpy(np.stack([p[i] for p in pairs])).to(cuda_dev)
+                     for i in (0, 1))
+    cfg, params = ICPConfig(), ICPParams(alpha=2e2)
+    chunk_graph.clear()
+    before = _graph_counters()
+    batch = register_batch(fixed, moving, params, cfg)
+    counted = _counted(before)
+    params = params.to(cuda_dev)
+    want = _eager_loop(list(moving), [build_target(f, params, cfg) for f in fixed], params,
+                       cfg, [identity_state(torch.float32, cuda_dev) for _ in range(3)])
+    assert counted["icp.chunk_graph.captures"] == 1 and counted["icp.chunk_eager"] == 0
+    for i in range(3):
+        _assert_states_equal(_lane(batch, i), want[i], i)
+
+
+def _lane(batch, i):
+    """Lane i of a batched ICPState."""
+    from icp_tpu_torch.icp.state import ICPState
+
+    return ICPState(**{name: getattr(batch, name)[i] for name in STATE_FIELDS})
+
+
+def test_odometry_chain_graph_equals_eager_chain(cuda_dev, orbit_lms):
+    """odometry_chain_device (icp_run with reads=False a pair) with its chunk
+    captured inside sync debug mode's "error" window: nothing waits for the
+    stream, capture included; one capture and a replay a pair; each frame's
+    k and world pose torch.equal to the chain composed from the loop written
+    out with reads=False."""
+    from icp_tpu_torch import ICPConfig, ICPParams
+    from icp_tpu_torch.icp import chunk_graph
+    from icp_tpu_torch.icp.quaternion import qidentity, qmul, qnormalize, qrotate
+    from icp_tpu_torch.icp.run import build_index
+    from icp_tpu_torch.icp.state import identity_state
+    from icp_tpu_torch.slam.odometry import odometry_chain_device
+
+    cfg = ICPConfig(max_iterations=8, estimate_scale=False)
+    params = ICPParams(alpha=2e2).to(cuda_dev)
+    q_w, t_w = qidentity(torch.float32, cuda_dev), torch.zeros(3, device=cuda_dev)
+    want = []
+    for i in range(orbit_lms.shape[0] - 1):
+        index = build_index(orbit_lms[i].contiguous(), params, cfg)
+        (st,) = _eager_loop([orbit_lms[i + 1].contiguous()], [index], params, cfg,
+                            [identity_state(torch.float32, cuda_dev)], reads=False)
+        q_w, t_w = qnormalize(qmul(q_w, st.q)), qrotate(q_w, st.t) + t_w
+        want.append((q_w, t_w, st.k))
+    chunk_graph.clear()
+    torch.cuda.synchronize()
+    before = _graph_counters()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        q, t, ks = odometry_chain_device(orbit_lms, params, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    counted = _counted(before)
+    assert counted == {"icp.chunk_graph.captures": 1, "icp.chunk_eager": 0,
+                       "icp.chunk_graph.replays": orbit_lms.shape[0] - 1}
+    for i, (q_i, t_i, k_i) in enumerate(want):
+        assert torch.equal(ks[i], k_i)
+        assert torch.equal(q[i + 1], q_i) and torch.equal(t[i + 1], t_i)
 
 
 # ---- slice 6: register_batch on the card -------------------------------------

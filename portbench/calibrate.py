@@ -42,20 +42,22 @@ def cycle_window(system, traffic):
     return Window(calls=calls, seconds=calls[-1][1] - calls[0][0])
 
 
-def control(frames, window, icp: dict, seed: int, size: int) -> dict:
+def control(frames, window, config: dict, seed: int, size: int, root=None) -> dict:
     """The compared numbers with the TF32 reference in the program's place."""
-    from portbench import check
+    from portbench import check, spec
 
+    reference = spec.reference(config, root or spec.ROOT)
+    icp = config["icp"]
     worst: dict = {}
     cache32, cache_tf32 = {}, {}
     rows = window.rows
     for idx in check.sample(window, seed, size):
         pair, _ = rows[idx]
-        ctrl = check.reference_run(frames, pair, icp, 0, cache_tf32, tf32=True)
+        ctrl = reference(frames, pair, icp, 0, cache_tf32, True)
         k = ctrl["k"]
         q, t, s = ctrl["poses"][k - 1]
         row = [*q.tolist(), *t.tolist(), s, k]
-        ref = check.reference_run(frames, pair, icp, k, cache32)
+        ref = reference(frames, pair, icp, k, cache32, False)
         for name, v in check.pose_gaps(row, ref).items():
             worst[name] = max(worst.get(name, 0.0), math.inf if math.isnan(v) else v)
     return worst
@@ -90,11 +92,10 @@ def main(argv=None) -> int:
             del system
             t0 = time.perf_counter()
             out = {"seed": seed, "ks": window.ks,
-                   "program": check.compare(pool["frames"], window, config["icp"], seed,
-                                            size),
+                   "program": check.compare(pool["frames"], window, config, seed, size),
                    "reference_s": time.perf_counter() - t0}
             if args.control:
-                out["control"] = control(pool["frames"], window, config["icp"], seed, size)
+                out["control"] = control(pool["frames"], window, config, seed, size)
         print(json.dumps(out), flush=True)
         del pool
         torch.cuda.empty_cache()

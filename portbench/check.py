@@ -20,7 +20,8 @@ iterations between two sound computations. Where it stops is held by
 test too loose, too few iterations, a stop after the first chunk) leaves
 its pose millimetres from where the reference's own test stops. Which
 numbers a configuration compares, and their limits, are in
-``limits/<config>.json``.
+``limits/<config>.json``; which reference registers the sample, in its
+``reference`` (``spec.reference``).
 """
 
 from __future__ import annotations
@@ -30,8 +31,8 @@ import math
 import numpy as np
 import torch
 
+from portbench import spec
 from portbench.reference import icp as ref_icp
-from portbench.reference import normals as ref_normals
 
 
 def sample(window, seed: int, size: int) -> list[int]:
@@ -47,8 +48,8 @@ def sample(window, seed: int, size: int) -> list[int]:
 
 def pose_gaps(row, ref: dict) -> dict:
     """The compared numbers of one registration: ``row`` the program's
-    (q, t, s, k), ``ref`` the reference's run (:func:`reference_run`, run to
-    at least the program's k)."""
+    (q, t, s, k), ``ref`` the reference's run (``spec.reference``'s, run
+    to at least the program's k)."""
     k = int(row[8])
     if k < 1:
         return {name: math.inf for name in
@@ -66,29 +67,18 @@ def pose_gaps(row, ref: dict) -> dict:
     }
 
 
-def reference_run(frames: torch.Tensor, pair, icp: dict, run_to: int,
-                  normals_cache: dict, tf32: bool = False) -> dict:
-    """The reference's registration of ``pair`` (fixed, moving), with the
-    fixed frame's normals where the objective needs them."""
-    i, j = pair
-    with ref_icp.precision(tf32):
-        normals = None
-        if icp["objective"] == "plane":
-            if i not in normals_cache:
-                normals_cache[i] = ref_normals.knn_normals(frames[i])
-            normals = normals_cache[i]
-        return ref_icp.register(frames[i], frames[j], icp, normals, run_to=run_to)
-
-
-def compare(frames: torch.Tensor, window, icp: dict, seed: int, size: int) -> dict:
-    """The largest of each compared number over the sample."""
+def compare(frames: torch.Tensor, window, config: dict, seed: int, size: int,
+            root=spec.ROOT) -> dict:
+    """The largest of each compared number over the sample, against the
+    reference that the configuration names."""
+    reference = spec.reference(config, root)
     worst: dict = {}
     cache: dict = {}
     rows = window.rows
     for idx in sample(window, seed, size):
         pair, row = rows[idx]
         k = int(row[8])
-        ref = reference_run(frames, pair, icp, k, cache)
+        ref = reference(frames, pair, config["icp"], k, cache, False)
         for name, v in pose_gaps(row, ref).items():
             worst[name] = max(worst.get(name, 0.0), math.inf if math.isnan(v) else v)
     return worst

@@ -15,7 +15,7 @@ window it checks a sample of the window's registrations against the plain
 reference (``check.py``).
 
 Standard output: a line ``portbench host {...}`` (CPU, load, the card's
-clocks and power, the compile cache, sample counts, p50, and in a traced
+clocks and power, the compile cache, sample counts, p50 and p95, and in a traced
 run the traced calls' wall against the same calls' untraced), then the
 result: one JSON object, the last line. Standard error ends with the compared
 numbers and their limits. Exits non-zero with no result when no card (or
@@ -113,7 +113,9 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: str,
     from portbench import check, devtrace, scene
     from portbench.drive import System, first_call, run_window, trace_overhead
     from portbench.spec import metric_reader
+    from portbench.stats import percentile
 
+    root = cell["root"]
     config, traffic = cell["config"], cell["traffic"]
     host = {}
     phases = {}  # seconds since the process started, at the end of each
@@ -123,7 +125,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: str,
     phases["kernels"] = time.perf_counter() - process_start
     with torch.no_grad():
         pool = scene.make_pool(seed, config, traffic["pool_frames"], device)
-        system = System(config, traffic, pool["frames"], first_call(traffic, seed))
+        system = System(config, traffic, pool["frames"], first_call(traffic, seed), root)
         if device == "cuda":
             torch.cuda.synchronize()
         phases["pool"] = time.perf_counter() - process_start
@@ -145,14 +147,14 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: str,
         window.trace = devtrace.read(prof) if prof is not None else None
         host.update(trace_overhead(window, traffic["pool_frames"] // traffic["batch"]))
         del system
-        worst = check.compare(pool["frames"], window, config["icp"], seed,
-                              traffic["check_sample"])
+        worst = check.compare(pool["frames"], window, config, seed, traffic["check_sample"],
+                              root)
     correct, checks = check.judge(worst, cell["limits"])
     rows = window.rows
     failed = sum(1 for _, r in rows if not all(math.isfinite(x) for x in r.tolist()))
     metrics = {}
     for m in (cell["per_layer"] if trace else cell["end_to_end"]):
-        value = metric_reader(m["name"])(window)
+        value = metric_reader(m["name"], root)(window)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     dev = {"platform": "gpu" if device == "cuda" else device,
@@ -168,6 +170,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: str,
     host.update(calls=len(window.calls), pairs=len(rows), window_s=window.seconds,
                 setup_phases=phases,
                 latency_p50_ms=statistics.median(window.latencies_s) * 1e3,
+                latency_p95_ms=percentile(window.latencies_s, 95) * 1e3,
                 iterations=sum(window.ks))
     return {"result": result, "checks": checks, "host": host}
 

@@ -4,12 +4,14 @@ profiler's trace of some of its calls.
 ``icp_tpu_torch.runtime.timing`` records spans on the register path
 (``icp.register`` > ``icp.build_target`` > ``icp.normals``; ``icp.register``
 > ``icp.run`` > ``icp.chunk``, ``icp.host_read``) in ``time.time_ns()``
-nanoseconds, and counts ``icp.steps_enqueued``. :func:`run_window` runs a closed-loop window as
+nanoseconds, and counts its work (``timing.counters()``:
+``icp.steps_enqueued``, the chunk graph's captures and replays, the eager
+chunks). :func:`run_window` runs a closed-loop window as
 ``drive.run_window`` does, with spans on, and profiles calls from the
 middle of the window on: a stopped profiler leaves every later call
 slower (its CUDA API callbacks stay subscribed unless kineto tears them
 down), so only the calls before the profiler are free of its cost.
-It keeps the spans, the counters' increments over the calls before the
+It keeps the spans, every counter's increments over the calls before the
 profiler, over the profiled calls and over the window, every profiler
 record with its correlation id (which links a device operation to the CUDA
 API call that launched it) and the span clock read on both sides of the
@@ -35,14 +37,13 @@ import sys
 import time
 
 from portbench import devtrace, stats
-from portbench.drive import Window
+from portbench.drive import Window, counter_increments
 
 # CUDA API calls that enqueue work on the device.
 LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemsetAsync", "cudaMemcpyAsync",
             "cudaGraphLaunch")
 SKEW_LIMIT_NS = 50_000
 OUTSIDE = "outside"
-COUNTERS = ("icp.steps_enqueued",)
 
 
 @dataclasses.dataclass
@@ -93,10 +94,6 @@ def events_of(prof) -> list[Event]:
             for e in prof.profiler.kineto_results.events()]
 
 
-def _increments(before: dict, after: dict) -> dict:
-    return {k: after.get(k, 0) - before.get(k, 0) for k in COUNTERS}
-
-
 def run_window(system, seconds: float, trace_calls: int = 0):
     """Calls from 0 on until ``seconds`` have passed since the first began,
     with the program's spans recorded; with ``trace_calls``, the calls from
@@ -145,8 +142,9 @@ def run_window(system, seconds: float, trace_calls: int = 0):
     c3 = counters()
     traced = first is not None
     window.spans = SpanRecord(
-        spans=take_spans(), before=_increments(c0, c1 if traced else c3),
-        profiled=_increments(c1, c2 if traced else c1), total=_increments(c0, c3),
+        spans=take_spans(), before=counter_increments(c0, c1 if traced else c3),
+        profiled=counter_increments(c1, c2 if traced else c1),
+        total=counter_increments(c0, c3),
         profiled_ns=profiled_ns,
         profiled_calls=range(first, first + trace_calls) if traced else range(0),
         events=events_of(prof) if traced else [], anchor_ns=anchor)
@@ -211,7 +209,7 @@ def step_host_ms(window) -> float | None:
     if rec is None:
         return None
     chunks = _named(rec, "icp.chunk", "before")
-    steps = rec.before["icp.steps_enqueued"]
+    steps = rec.before.get("icp.steps_enqueued", 0)
     if not chunks or not steps:
         return None
     return sum(s.end_ns - s.start_ns for s in chunks) * 1e-6 / steps
@@ -224,7 +222,7 @@ def launches_per_step(window) -> float | None:
     if not _aligned(rec):
         return None
     chunks = sorted((s.start_ns, s.end_ns) for s in _named(rec, "icp.chunk", "profiled"))
-    steps = rec.profiled["icp.steps_enqueued"]
+    steps = rec.profiled.get("icp.steps_enqueued", 0)
     if not chunks or not steps:
         return None
     launches = sum(1 for e in rec.events
@@ -239,7 +237,7 @@ def chunk_tail_share(window) -> float | None:
     rec = getattr(window, "spans", None)
     if rec is None:
         return None
-    steps = rec.total["icp.steps_enqueued"]
+    steps = rec.total.get("icp.steps_enqueued", 0)
     if not steps:
         return None
     return 100.0 * (1.0 - sum(window.ks) / steps)

@@ -21,8 +21,8 @@ def test_control_fails_the_limits_the_program_meets(cuda_device, name):
     with torch.no_grad():
         pool = scene.make_pool(2 ** 31 + 5, config, 8, cuda_device)
         window = calibrate.cycle_window(System(config, traffic, pool["frames"]), traffic)
-        program = check.compare(pool["frames"], window, config["icp"], 5, 8)
-        control = calibrate.control(pool["frames"], window, config["icp"], 5, 8)
+        program = check.compare(pool["frames"], window, config, 5, 8)
+        control = calibrate.control(pool["frames"], window, config, 5, 8)
     ok, _ = check.judge(program, cell["limits"])
     assert ok, program
     ok, _ = check.judge(control, cell["limits"])

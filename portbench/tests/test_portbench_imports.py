@@ -22,7 +22,8 @@ def _modules_after(code: str) -> set:
 
 
 def test_the_reference_loads_nothing_of_the_port():
-    names = _modules_after("import portbench.reference.icp, portbench.reference.normals")
+    names = _modules_after("import portbench.reference.icp, portbench.reference.normals, "
+                           "portbench.reference.point_plane")
     assert "icp_tpu_torch" not in names and not loaded_forbidden(names)
 
 

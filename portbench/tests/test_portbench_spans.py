@@ -1,7 +1,8 @@
 """The span readings of ``spantrace.py`` on a hand-made window whose
 spans, counters and trace records have known answers (nanoseconds on one
-clock), and on the card the marker's launch between the span clock's
-reads."""
+clock); every counter of the program in the windows of ``spantrace.py``
+and ``drive.py``; and on the card the marker's launch between the span
+clock's reads."""
 
 import pytest
 
@@ -9,6 +10,7 @@ from conftest import tiny
 from icp_tpu_torch.runtime.timing import Span
 from portbench import devtrace, scene, spantrace, spec
 from portbench.drive import System, Window, first_call
+from portbench.drive import run_window as drive_run_window
 from portbench.spantrace import Event, SpanRecord
 
 # Registration 1 ran before the profiler, 0 under it (0-1000 ns), 2 after it.
@@ -129,3 +131,32 @@ def test_marker_launch_lies_between_the_span_clock_reads(cuda_device):
                  spantrace.chunk_tail_share, spantrace.host_read_wait_ms, spantrace.index_ms):
         assert read(w) is not None, read.__name__
     assert spantrace.idle_by_span(w)
+
+
+class _Counting:
+    """Stands for the port: each call counts what a registration of two
+    chunks replayed from the CUDA graph counts."""
+
+    frames = None
+
+    def call(self, n):
+        from icp_tpu_torch.runtime import timing
+
+        timing.count("icp.steps_enqueued", 16)
+        timing.count("icp.chunk_graph.replays", 2)
+        return [[0, 0, 0, 1, 0, 0, 0, 1, 12]]
+
+    def pairs(self, n):
+        return [(n, n + 1)]
+
+
+def test_every_counter_reaches_the_window():
+    w, _ = spantrace.run_window(_Counting(), 0.0)
+    calls = len(w.calls)
+    # spanprobe.py prints ``w.spans.total`` as its counters_total.
+    assert w.spans.total["icp.chunk_graph.replays"] == 2 * calls
+    assert w.spans.total["icp.steps_enqueued"] == 16 * calls
+    assert spantrace.chunk_tail_share(w) == pytest.approx(25.0)
+    w, _ = drive_run_window(_Counting(), 0.0)
+    assert w.counters["icp.chunk_graph.replays"] == 2 * len(w.calls)
+    assert w.traced_counters == {} and w.traced_spans == []

@@ -42,6 +42,7 @@ def test_window_rates():
     assert metric_reader("iterations_per_pair")(w) == pytest.approx(14.0)
     lat = [0.1, 0.3, 0.1, 0.5]
     assert metric_reader("latency_p95_ms")(w) == pytest.approx(np.percentile(lat, 95) * 1e3)
+    assert metric_reader("call_p95_ms")(w) == metric_reader("latency_p95_ms")(w)
     batch = _window([(0.0, 1.0, [8, 9])], 1.0, batch=2)
     assert metric_reader("pairs_per_s")(batch) == pytest.approx(2.0)
 
@@ -84,3 +85,13 @@ def test_trace_overhead_compares_the_same_calls_one_cycle_later():
     assert out["same_calls_untraced_wall_s"] == pytest.approx(1.0)
     assert out["trace_overhead"] == pytest.approx(1.5)
     assert trace_overhead(w, per_cycle=4)["trace_overhead"] is None
+
+
+def test_chunk_graph_hit_share_over_the_traced_calls():
+    w = _window([(0.0, 1.0, [8])], 1.0, traced_calls=1)
+    assert metric_reader("chunk_graph_hit_share")(w) is None
+    w.traced_counters = {"icp.chunk_graph.replays": 9, "icp.chunk_eager": 3,
+                         "icp.chunk_graph.captures": 1, "icp.steps_enqueued": 96}
+    assert metric_reader("chunk_graph_hit_share")(w) == pytest.approx(75.0)
+    w.counters = {"icp.chunk_eager": 5}  # the whole window's: not read
+    assert metric_reader("chunk_graph_hit_share")(w) == pytest.approx(75.0)

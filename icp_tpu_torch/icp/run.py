@@ -22,11 +22,14 @@ function, :func:`_chunk`, and give the same bits.
 Spans (``runtime/timing.py``, recorded while switched on): ``icp.register``
 around each :func:`register` and :func:`register_batch` (a registration
 id), ``icp.build_target`` (and ``icp.normals`` inside it, from
-``ops/normals.py``), ``icp.run`` around the loop, ``icp.chunk``
+``ops/normals.py``), ``icp.run`` around the loop, ``icp.moving_normals``
+in it around each estimate of a moving set's normals (symmetric PLANE and
+GICP; its own ``icp.normals`` inside), ``icp.chunk``
 around the enqueue (or the replay) of each chunk over all lanes and
 ``icp.host_read`` around each read of the loop condition. Counters
 (always): ``icp.steps_enqueued`` (one a lane a step computed, taken or
-not), ``icp.chunk_eager`` (a chunk enqueued from Python),
+not), ``icp.moving_normals`` (one a moving set's normals estimated),
+``icp.chunk_eager`` (a chunk enqueued from Python),
 ``icp.chunk_graph.replays`` and ``icp.chunk_graph.captures``.
 """
 
@@ -135,6 +138,14 @@ def chunk_key(inputs: _Inputs, carry: _Carry, config: ICPConfig) -> tuple:
             chunk_graph.signature(carry))
 
 
+def _moving_normals(moving8: torch.Tensor, config: ICPConfig) -> torch.Tensor:
+    """The moving set's normals, in the span and counter that tell them
+    apart from the fixed set's."""
+    with span("icp.moving_normals"):
+        count("icp.moving_normals")
+        return normals_for(moving8, config.normal_mode)
+
+
 def _run_lanes(movings: list, targets: list, params: ICPParams,
                config: ICPConfig, inits: list, reads: bool = True) -> list:
     """The loop of :func:`icp_run` over independent lanes (pairs): each lane
@@ -149,7 +160,7 @@ def _run_lanes(movings: list, targets: list, params: ICPParams,
     with span("icp.run"):
         # The moving normals (symmetric PLANE / GICP) are loop-invariant: once
         # per registration, not once per step.
-        mnormals = [normals_for(m, config.normal_mode)
+        mnormals = [_moving_normals(m, config)
                     if config.needs_normals and gn_mode(config) != "plane" else None
                     for m in movings]
         inputs = _Inputs(movings, targets, params, mnormals)

@@ -11,6 +11,7 @@ step moves t by up to ~0.01 mm, so the last 0.01 mm depends on summation
 order.
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import math
 
 import numpy as np
@@ -33,16 +34,6 @@ CONFIGS = {
 }
 
 
-@pytest.fixture
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(saved)
-
-
 def _configs(name):
     d = CONFIGS[name]
     enums = {"correspondence": (icp_tpu.Correspondence, icp_tpu_torch.Correspondence),
@@ -62,7 +53,7 @@ def _batch(seed):
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
-def test_register_batch_lanes_equal_single_register(one_thread, name):
+def test_register_batch_lanes_equal_single_register(name):
     _, config = _configs(name)
     fixed, moving, _, _ = _batch(42)
     params = icp_tpu_torch.ICPParams(alpha=2e2)
@@ -78,7 +69,7 @@ def test_register_batch_lanes_equal_single_register(one_thread, name):
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
-def test_register_batch_matches_jax(one_thread, name):
+def test_register_batch_matches_jax(name):
     jconfig, config = _configs(name)
     fixed, moving, qs, ts = _batch(42)
     jb = icp_tpu.register_batch(jnp.asarray(fixed), jnp.asarray(moving),

@@ -22,6 +22,7 @@ formula the kernel evaluates on the device) bounds |s~ - s| for every pair.
   every other pair down), picks brute_nn_ref's index and score bitwise.
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import importlib
 
 import numpy as np

@@ -10,6 +10,7 @@ port sums onto the cameras with one-hot products and onto the landmarks
 over the grouped table, JAX by scatter-adds: float32 rounding apart).
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -19,16 +20,6 @@ from icp_tpu.slam import bundle_adjustment as JB
 from icp_tpu.slam import se3 as J3
 from icp_tpu_torch.slam import bundle_adjustment as TB
 from tests.test_bundle_adjustment import _make_problem
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(saved)
 
 
 def _to_torch(problem) -> TB.BAProblem:

@@ -11,6 +11,7 @@ and every tensor's layout. The card's tests (``tests/test_torch_gpu.py``)
 hold the replays bitwise to the eager loop.
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import dataclasses
 
 import pytest
@@ -30,17 +31,6 @@ GRAPH_COUNTERS = ("icp.chunk_graph.captures", "icp.chunk_graph.replays", "icp.ch
 CUDA = torch.device("cuda", 0)  # a device object only: nothing runs on it here
 
 
-@pytest.fixture
-def one_thread():
-    """One summation order for bitwise comparisons."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(saved)
-
-
 def _pair(seed=3, m=M):
     return tuple(torch.from_numpy(a) for a in synthetic_pair(m, seed=seed))
 
@@ -51,7 +41,7 @@ def _counters():
 
 
 @pytest.mark.parametrize("entry", ["register", "register_batch"])
-def test_cpu_loop_runs_every_chunk_eagerly(one_thread, entry):
+def test_cpu_loop_runs_every_chunk_eagerly(entry):
     config, params = ICPConfig(m=M, n_r=16), ICPParams(alpha=2e2)
     fixed, moving = _pair()
     before = _counters()
@@ -70,7 +60,7 @@ def test_cpu_loop_runs_every_chunk_eagerly(one_thread, entry):
 
 
 @pytest.mark.parametrize("reads", [True, False])
-def test_cpu_icp_run_equals_the_loop_written_out(one_thread, reads):
+def test_cpu_icp_run_equals_the_loop_written_out(reads):
     """icp_run against 8-step chunks of icp_step written out, with one read
     of the loop condition a chunk (or every chunk max_iterations allows):
     every field bitwise."""

@@ -1,6 +1,7 @@
 """icp_tpu_torch configuration against icp_tpu's: one dict builds both, and
 they agree field for field (auto-capacities and validation included)."""
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import dataclasses
 import enum
 

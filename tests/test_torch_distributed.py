@@ -12,6 +12,7 @@ torch thread a rank, a 60 s rendezvous and collective timeout, 120 s to
 finish.
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import logging
 import time
 from types import SimpleNamespace

@@ -16,6 +16,7 @@ may skip the dead slots of a bin, checked on the plain twins on the CPU.
   ``__graft_entry__._synthetic_pair``, bit for bit.
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import numpy as np
 import pytest
 import torch

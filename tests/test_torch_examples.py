@@ -29,6 +29,7 @@ converge in k within 2 of each other, below the cap, and within 10 mm and
 0.3 deg of the grabber's pose (POINT's ~3 mm landmark-lattice floor).
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import contextlib
 import importlib
 import io
@@ -62,16 +63,6 @@ Q_B = np.array([0.0, np.sin(0.004), 0.0, np.cos(0.004)])
 T_B = np.array([10.0, -6.0, 8.0])
 GRABS = {"1": [], "2": ["--pose", *POSE_B], "3": ["--pose", *POSE_B, "-f"]}
 MAX_SURFACE_FLIPS = 10  # tests/test_torch_normals.py
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(saved)
 
 
 def _jax_main(mp, module, argv):

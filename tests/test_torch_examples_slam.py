@@ -25,6 +25,7 @@ tests/test_torch_parallel.py), every rank bitwise rank 0's. The service's
 resumed run equals its uninterrupted run bitwise.
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import contextlib
 import functools
 import io
@@ -60,16 +61,6 @@ import examples.multichip as JMC
 import examples.odometry as JODO
 
 M_S, N_R_S = 4096, 64
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(saved)
 
 
 def _small(landmarks):

@@ -11,6 +11,7 @@ open none. K7's work count at the LiDAR shape by hand, and the two readers
 of the cell's new metrics on a made-up window.
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import importlib.util
 import subprocess
 import sys
@@ -64,30 +65,25 @@ def sweep_run():
     """The port's pose after each iteration of one ``register`` of the pair
     (each step's state recorded as ``_run_lanes`` takes it), its final
     state, and the reference's run with its normals cache."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
+    cfg = small_sweep_config()
+    frames = scene.make_pool(SEED, cfg, 4, "cpu")["frames"]
+    params, config = drive.port_settings(cfg)
+    states = []
+    step = run_mod.icp_step
+
+    def recording_step(*args, **kwargs):
+        states.append(step(*args, **kwargs))
+        return states[-1]
+
+    run_mod.icp_step = recording_step
     try:
-        cfg = small_sweep_config()
-        frames = scene.make_pool(SEED, cfg, 4, "cpu")["frames"]
-        params, config = drive.port_settings(cfg)
-        states = []
-        step = run_mod.icp_step
-
-        def recording_step(*args, **kwargs):
-            states.append(step(*args, **kwargs))
-            return states[-1]
-
-        run_mod.icp_step = recording_step
-        try:
-            final = icp_tpu_torch.register(frames[PAIR[0]], frames[PAIR[1]], params, config)
-        finally:
-            run_mod.icp_step = step
-        cache = {}
-        ref = ref_gicp.run(frames, PAIR, cfg["icp"], ITERATIONS, cache)
-        yield {"cfg": cfg, "frames": frames, "states": states, "final": final,
-               "ref": ref, "cache": cache}
+        final = icp_tpu_torch.register(frames[PAIR[0]], frames[PAIR[1]], params, config)
     finally:
-        torch.set_num_threads(saved)
+        run_mod.icp_step = step
+    cache = {}
+    ref = ref_gicp.run(frames, PAIR, cfg["icp"], ITERATIONS, cache)
+    return {"cfg": cfg, "frames": frames, "states": states, "final": final,
+            "ref": ref, "cache": cache}
 
 
 def _gaps(states, ref) -> list:
@@ -126,12 +122,7 @@ def test_register_follows_the_reference_after_each_iteration(sweep_run):
 def test_a_planted_fault_in_the_moving_normals_is_told_apart(sweep_run, fault):
     faulty = _faulty_reference(*fault)
     frames, cfg, cache = sweep_run["frames"], sweep_run["cfg"], sweep_run["cache"]
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        ref = faulty.run(frames, PAIR, cfg["icp"], ITERATIONS, dict(cache))
-    finally:
-        torch.set_num_threads(saved)
+    ref = faulty.run(frames, PAIR, cfg["icp"], ITERATIONS, dict(cache))
     assert _gaps(sweep_run["states"], ref)[-1]["t_gap_mm"] > 2 * T_TOL_MM
 
 

@@ -8,6 +8,7 @@ the kernel itself is checked on the card by tests/test_torch_gpu.py and
 chip_smoke.py.
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import numpy as np
 import jax
 import jax.numpy as jnp

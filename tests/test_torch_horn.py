@@ -1,6 +1,7 @@
 """icp_tpu_torch quaternions and Horn solves against icp_tpu's, on the same
 numpy inputs (rtol 1e-5, atol 1e-6), plus the reference's embedded golden."""
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import numpy as np
 import jax.numpy as jnp
 import pytest

@@ -8,6 +8,7 @@ wrappers' CPU dispatch; the kernels themselves are checked on the card by
 tests/test_torch_gpu.py and chip_smoke.py.
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import numpy as np
 import jax.numpy as jnp
 import pytest

@@ -4,6 +4,7 @@ interpret-mode Pallas kernels, the Morton order, the closed-form 3x3
 eigenvector, the brute and RBC estimators, ``wavy_surface_pair`` and the
 PLANE / GICP registrations of an unorganized pair."""
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -21,7 +22,6 @@ from icp_tpu_torch.ops import normals as TN
 from icp_tpu_torch.sensors import synthetic as TY
 from tests.test_icp_e2e import _make_pair, _structured_cloud
 from tests.test_knn_normals import _analytic_normals
-from tests.test_torch_slice2 import one_thread  # noqa: F401  (a fixture)
 
 
 def _t(a):
@@ -287,7 +287,7 @@ def test_wavy_surface_pair_matches_jax():
 @pytest.mark.parametrize("objective, normal_mode", [("plane", "knn_rbc"),
                                                    ("plane", "knn"),
                                                    ("gicp", "knn_rbc")])
-def test_register_knn_matches_jax(rng, one_thread, objective, normal_mode):
+def test_register_knn_matches_jax(rng, objective, normal_mode):
     """``icp_tpu_torch.register`` against ``icp_tpu.register`` on the
     reference test's unorganized pair (m 4096, n_r 64): both within the
     reference test's truth bounds (0.5 mm, 0.05 deg), the port within

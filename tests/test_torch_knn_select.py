@@ -12,6 +12,7 @@ order. hi and n must equal the twin's bit for bit, the components within
 1e-5 of each query's largest.
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import numpy as np
 import pytest
 import torch

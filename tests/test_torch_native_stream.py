@@ -9,6 +9,7 @@ sources with the same flags), but the metrics' rotation angle, which each
 package computes with its own ``qangle_deg``: within 1e-6 deg.
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 from pathlib import Path
 
 import numpy as np

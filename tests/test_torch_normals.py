@@ -2,6 +2,7 @@
 layer that makes the rendered gate pair (sensors/pinhole.py,
 sensors/synthetic.py) against icp_tpu on the same inputs."""
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import numpy as np
 import jax.numpy as jnp
 import pytest

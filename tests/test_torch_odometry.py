@@ -11,6 +11,7 @@ the rotations within 2e-4 deg), torch pinned to one thread; the world poses
 compose those, so they are held within 0.02 mm and 4e-4 deg.
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -30,16 +31,6 @@ from icp_tpu_torch.ops.sampling import get_landmarks as t_landmarks
 from icp_tpu_torch.slam import odometry as TO
 from icp_tpu_torch.slam import se3 as T3
 from tests.utils import random_quat
-
-
-@pytest.fixture
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(saved)
 
 
 def _poses(rng, n=2):
@@ -151,7 +142,7 @@ def orbit():
 
 
 @pytest.mark.parametrize("objective", ["point", "gicp"])
-def test_odometry_chains_match_jax(orbit, one_thread, objective):
+def test_odometry_chains_match_jax(orbit, objective):
     """On 4096 landmarks a frame (every other row and column of the 16384),
     m 4096, n_r 64: the port's device chain is bitwise its host chain
     (poses and k), and both meet JAX's run_odometry within the slice
@@ -186,7 +177,7 @@ def test_odometry_chains_match_jax(orbit, one_thread, objective):
         assert float(qangle_deg(qmul(jnp.asarray(tp.q.numpy()), qconj(jp.q)))) <= 4e-4
 
 
-def test_icp_run_without_reads_is_bitwise(one_thread):
+def test_icp_run_without_reads_is_bitwise():
     """icp_run with reads=False (every chunk, steps past the stop frozen)
     gives icp_run's state bit for bit, on a pair that converges inside the
     first chunk and on one stopped by max_iterations mid-chunk."""

@@ -25,6 +25,7 @@ Tolerances:
 - every rank's state ``torch.equal`` to rank 0's.
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 from types import SimpleNamespace
 
 import numpy as np

@@ -11,6 +11,7 @@ within 0.01 mm, the angle within 2e-4 deg, the scale within 1e-5; every
 rank's state ``torch.equal`` to rank 0's.
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import jax.numpy as jnp
 import pytest
 import torch

@@ -19,6 +19,7 @@ packages and is held to the JAX test's own bounds (1 <= k <= 40,
 |t| < 50 mm, angle < 2 deg).
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import re
 
 import numpy as np
@@ -54,16 +55,6 @@ def clouds():
                  for p in (synthetic.CameraPose.identity(), pose_b))
 
 
-@pytest.fixture
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(saved)
-
-
 def _configs(objective):
     return (icp_tpu.ICPConfig(objective=icp_tpu.Objective(objective), estimate_scale=False),
             icp_tpu_torch.ICPConfig(objective=icp_tpu_torch.Objective(objective),
@@ -84,7 +75,7 @@ def _labels(out: str) -> list:
             else re.sub(r"\d+(\.\d+)?", "#", line) for line in out.splitlines()]
 
 
-def test_step_by_step_matches_jax(clouds, one_thread, capsys):
+def test_step_by_step_matches_jax(clouds, capsys):
     fixed, moving = clouds
     jc, tc = _configs("plane")
     japp = JPIPE.ICPStepByStep(fixed, moving, icp_tpu.ICPParams(alpha=2e2), jc)
@@ -124,7 +115,7 @@ def _apps(clouds, objective):
     return japp, tapp
 
 
-def test_step_by_step_point_matches_jax(clouds, one_thread):
+def test_step_by_step_point_matches_jax(clouds):
     """POINT: step 1 on each package's own target, then steps 1 and 2 with
     JAX's target carried across to the port."""
     japp, tapp = _apps(clouds, "point")
@@ -206,7 +197,7 @@ def test_step_by_step_builds_its_target_on_the_first_step():
         assert (app._index is None) == (corr == "brute")
 
 
-def test_registration_matches_jax(clouds, one_thread, capsys):
+def test_registration_matches_jax(clouds, capsys):
     fixed, moving = clouds
     jc, tc = _configs("plane")
     js = JPIPE.ICPRegistration(icp_tpu.ICPParams(alpha=2e2), jc).register_clouds(

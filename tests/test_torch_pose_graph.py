@@ -38,6 +38,7 @@ Tolerances:
   each package, not to the other's poses.
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -51,16 +52,6 @@ from icp_tpu_torch.slam import pose_graph as TP
 from icp_tpu_torch.slam import se3 as T3
 from tests.test_pose_graph import _chain_with_loop, _circle_graph
 from tests.utils import random_quat
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(saved)
 
 
 def _to_torch(graph) -> TP.PoseGraph:

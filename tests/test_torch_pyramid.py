@@ -10,6 +10,7 @@ thread. The JAX tests' POINT pairs, small and large motion, are held to
 those tests' own bounds against the ground truth.
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import dataclasses
 
 import numpy as np
@@ -25,16 +26,6 @@ from icp_tpu.ops.sampling import get_landmarks
 from icp_tpu.sensors import synthetic
 from icp_tpu_torch.icp import pyramid as TP
 from tests.utils import make_cloud8
-
-
-@pytest.fixture
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(saved)
 
 
 @pytest.mark.parametrize("stride", [1, 2, 4])
@@ -72,7 +63,7 @@ def _rendered(theta, t):
                  for p in (synthetic.CameraPose.identity(), pose_b))
 
 
-def test_register_pyramid_matches_jax_on_small_motion(one_thread):
+def test_register_pyramid_matches_jax_on_small_motion():
     """The JAX test's small-motion pair with the PLANE objective, which
     converges at every level in both packages. (With POINT, the finest
     level of this rendered pair sits on its landmark-lattice floor and
@@ -121,7 +112,7 @@ def test_register_pyramid_meets_the_jax_tests_bounds(theta, t, large):
         assert t_pyr < 10.0 and a_pyr < 0.3, (t_pyr, a_pyr)
 
 
-def test_register_pyramid_levels_are_warm_started_registrations(one_thread):
+def test_register_pyramid_levels_are_warm_started_registrations():
     """The pyramid is icp_run level by level, each warm-started from the
     last with k reset: the same as calling the levels by hand, bitwise."""
     from icp_tpu_torch.icp.run import build_target, icp_run

@@ -4,6 +4,7 @@ mesh) and returns a dict of tensors. It holds no test. The ranks import
 this module as ``tests.test_torch_rank_tasks``, so it imports nothing of
 JAX."""
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 from icp_tpu_torch.kernels import native
 from icp_tpu_torch.ops.moments import masked_median_sharded
 from icp_tpu_torch.parallel.distributed import local_shard

@@ -1,6 +1,7 @@
 """icp_tpu_torch's RBC layer (grouping, construction, fused search) and its
 ops (distances, samplers) against icp_tpu on the same numpy inputs."""
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import dataclasses
 
 import numpy as np

@@ -8,6 +8,7 @@ in float32 in both packages, each with its own quaternion algebra: within
 1e-6 m and 1e-4 deg.
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import os
 import subprocess
 import sys

@@ -14,6 +14,7 @@ output's largest entry (float32 rotations and products). The summary text
 of ``ProfilingInfo`` equals JAX's.
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import numpy as np
 import jax.numpy as jnp
 import pytest

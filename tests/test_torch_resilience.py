@@ -5,6 +5,7 @@ ones retry with backoff; the two packages classify every error alike."""
 
 from __future__ import annotations
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import dataclasses
 
 import pytest

@@ -2,6 +2,7 @@
 factor and K4's twin, against icp_tpu on the same numpy inputs. The JAX
 side runs its XLA twins, as its own tests run them on the CPU."""
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import numpy as np
 import jax
 import jax.numpy as jnp

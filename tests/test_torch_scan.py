@@ -3,6 +3,7 @@
 within 1e-5 of the largest partial sum (each package's own cumulative-sum
 order)."""
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import numpy as np
 import jax.numpy as jnp
 import pytest

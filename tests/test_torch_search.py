@@ -7,6 +7,7 @@ On the CPU every wrapper takes its twin; the kernels themselves are checked
 on the card by tests/test_torch_gpu.py and chip_smoke.py.
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import importlib
 
 import numpy as np

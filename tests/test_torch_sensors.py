@@ -13,6 +13,7 @@ window area), the filtered depth within 0.05 mm, the filtered colour
 within 1e-4.
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import zlib
 
 import numpy as np

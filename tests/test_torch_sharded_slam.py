@@ -26,6 +26,7 @@ Tolerances:
 - every rank's result ``torch.equal`` to rank 0's.
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 from functools import partial
 
 import numpy as np
@@ -53,16 +54,6 @@ from tests.test_sharded_ba import _localize
 from tests.test_torch_bundle_adjustment import _to_torch as _ba_to_torch
 from tests.test_torch_pose_graph import _ate, _circle_gt, _gt_t, _spread, _to_torch
 from tests import test_torch_rank_tasks as rank_tasks
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(saved)
 
 
 def _median_data():

@@ -29,6 +29,7 @@ floor could split the closure sets: a failure message prints both sides'
 ``k``.
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import dataclasses
 
 import numpy as np
@@ -52,16 +53,6 @@ from tests.test_slam_engine import _loop_trajectory
 M_S, N_R_S = 4096, 64
 T_TOL, Q_TOL = 0.05, 1e-5
 OPT_T_TOL, OPT_Q_TOL = 1.0, 2e-2
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(saved)
 
 
 @pytest.fixture(scope="module")

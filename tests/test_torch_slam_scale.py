@@ -22,6 +22,7 @@ chain); after ``optimize_map`` within 0.5 mm and 5e-3 in q (the dense LM
 solve in float32, tests/test_torch_pose_graph.py).
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -40,16 +41,6 @@ from icp_tpu_torch.slam.odometry import KeyframePolicy as TK
 from tests.test_slam_scale import M, N_FRAMES, _camera_frame, _loop_poses, _world_cloud
 
 N_CUT = 48  # frames of the 220-frame circle (see the module docstring)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(saved)
 
 
 def _frames(n_circle, n_take):

@@ -2,6 +2,7 @@
 ``icp_tpu.register`` on the benchmark's pair, the chunked loop against the
 step-by-step loop, and the package's import hygiene."""
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import json
 import subprocess
 import sys
@@ -26,19 +27,7 @@ T_GT = np.array([8.0, -5.0, 3.0])  # _synthetic_pair's ground truth, any seed
 Q_GT = np.array([0.0, 0.0, np.sin(0.01), np.cos(0.01)], np.float32)
 
 
-@pytest.fixture
-def one_thread():
-    """Pin torch to one CPU thread: the port's float32 reductions then sum in
-    one order on any machine, so the comparison below is deterministic."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(saved)
-
-
-def test_register_matches_jax_on_benchmark_pair(one_thread):
+def test_register_matches_jax_on_benchmark_pair():
     """m=4096, n_r=64 on _synthetic_pair(4096), the benchmark's alpha=2e2.
 
     After convergence each float32 step moves t by up to ~0.01 mm, the

@@ -3,6 +3,7 @@ for the PLANE, symmetric PLANE, GICP and robust bench gates, on the
 reference's rendered gate pair cut to a 64 x 64 organized grid; the moving
 normals of the loop; and the loop against the step-by-step loop."""
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -38,18 +39,6 @@ _J_ENUMS = {"objective": icp_tpu.Objective, "weighting": icp_tpu.Weighting,
             "robust": icp_tpu.RobustKernel}
 
 
-@pytest.fixture
-def one_thread():
-    """One torch thread: the port's float32 reductions then sum in one order
-    on any machine, so the comparison is deterministic."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(saved)
-
-
 @pytest.fixture(scope="module")
 def pair():
     """(fixed, moving, moving with 12 % gross outliers) landmarks of the
@@ -77,7 +66,7 @@ def _errors(t, q):
 
 
 @pytest.mark.parametrize("gate", list(GATES))
-def test_register_matches_jax_on_rendered_gate(pair, one_thread, gate):
+def test_register_matches_jax_on_rendered_gate(pair, gate):
     """Equal k, |dt| <= 0.01 mm and <= 1e-3 deg between the port and the
     reference. At this cut (a quarter of the bench's landmarks) the
     reference itself misses the bench's 0.05 deg bound on PLANE and

@@ -12,6 +12,7 @@ records, and ``trace()`` writes the spans into its Chrome trace on the
 trace's own clock.
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import json
 
 import pytest
@@ -33,10 +34,8 @@ FIELDS = ("q", "t", "s", "k")
 
 @pytest.fixture
 def spans():
-    """Recording on for the test, one thread (one summation order), and
-    nothing left over from an earlier test."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
+    """Recording on for the test, and nothing left over from an earlier
+    test."""
     timing.take_spans()
     timing.record_spans(True)
     try:
@@ -44,7 +43,6 @@ def spans():
     finally:
         timing.record_spans(False)
         timing.take_spans()
-        torch.set_num_threads(saved)
 
 
 def _call(entry: str, objective: str = "point"):

@@ -17,6 +17,7 @@ The scores are the twins' (``fused_step.dot3``); the kernels compute the
 same bits with exact-product FMAs (tests/test_torch_exact_fma.py).
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import importlib
 
 import numpy as np

@@ -3,6 +3,7 @@ its checked-in table, on the CPU: every reachable kernel launch was run on
 the card by the sources in this tree, and the matrix covers every row of
 the JAX package's matrix."""
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import json
 import subprocess
 import sys

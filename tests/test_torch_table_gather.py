@@ -8,6 +8,7 @@ it); and the groupings built on it (``group_rows_by_bin``,
 three sources, column slices among them.
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import numpy as np
 import jax.numpy as jnp
 import pytest

@@ -6,6 +6,7 @@ the port's fused step against its unfused step, and whole registrations
 PLANE, GICP and robust TRIMMED adaptive on the rendered gate pair at 64x64).
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import dataclasses
 
 import numpy as np
@@ -32,7 +33,7 @@ from icp_tpu_torch.interop import config_from_dict, index_from_numpy
 from icp_tpu_torch.kernels import bin_search, brute_nn  # the K5 and K6 wrappers
 from icp_tpu_torch.ops import moments as TM
 from tests.test_icp_e2e import _make_pair
-from tests.test_torch_slice2 import GATES, N_R, SIDE, _errors, one_thread, pair  # noqa: F401
+from tests.test_torch_slice2 import GATES, N_R, SIDE, _errors, pair  # noqa: F401
 from tests.utils import random_quat
 
 ALPHA = 150.0
@@ -253,7 +254,7 @@ def _assert_registrations_agree(js, ts):
     assert float(qangle_deg(qmul(jnp.asarray(ts.q.numpy()), qconj(js.q)))) <= 1e-3
 
 
-def test_register_brute_point_matches_jax(rng, one_thread):  # noqa: F811
+def test_register_brute_point_matches_jax(rng):
     """The e2e pair of tests/test_icp_e2e.py at m=1024 (BRUTE, POWER,
     WEIGHTED); both land on its ground truth."""
     fixed, moving, q_true, t_true = _make_pair(rng, 1024)
@@ -280,7 +281,7 @@ UNFUSED_GATES = {
 
 
 @pytest.mark.parametrize("gate", list(UNFUSED_GATES))
-def test_register_unfused_gate_matches_jax(pair, one_thread, gate):  # noqa: F811
+def test_register_unfused_gate_matches_jax(pair, gate):  # noqa: F811
     """The rendered gate pair at 64x64 (m 4096, n_r 64), held as
     test_torch_slice2.py holds the fused gates: equal k, 0.01 mm and 1e-3
     deg from the reference, and within 0.01 mm / 1e-3 deg of the

@@ -7,6 +7,7 @@ is within the slice tolerances of tests/test_torch_slice.py (t within
 0.01 mm, the angle within 2e-4 deg, the scale within 1e-5) of JAX's on the
 JAX test's rendered pair, handed to both packages as numpy arrays."""
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import os
 import sys
 
@@ -30,16 +31,6 @@ from tests.utils import make_cloud8
 def _is_png(path):
     with open(path, "rb") as f:
         return f.read(8) == b"\x89PNG\r\n\x1a\n"
-
-
-@pytest.fixture
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(saved)
 
 
 def test_plots_write_pngs(tmp_path, rng):
@@ -91,7 +82,7 @@ def test_plot_without_matplotlib_names_it(tmp_path, monkeypatch):
     assert not os.path.exists(tmp_path / "x.png")
 
 
-def test_live_viewer_streams_and_matches_jax(tmp_path, one_thread):
+def test_live_viewer_streams_and_matches_jax(tmp_path):
     """tests/test_viz.py's headless stream on the port: attach() and two
     step() calls write frame_0000..0002.png and drive the port's
     ICPStepByStep, whose state then matches JAX's after two steps."""

@@ -14,6 +14,7 @@ full gate (60 iterations, lateral error < 6 mm at alpha 4e5 and > 25 mm at
 alpha 1e-6) is held on the card by ``chip_smoke.py``.
 """
 
+import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -28,16 +29,6 @@ from icp_tpu.slam import se3
 from tests.test_wall import _wall_cloud
 
 T_TOL, A_TOL = 0.01, 2e-4  # mm, deg: the slice tolerances
-
-
-@pytest.fixture
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(saved)
 
 
 def _landmarks(pose):
@@ -73,7 +64,7 @@ def _wall_bounds(st, rel):
     assert lateral < 30.0, lateral
 
 
-def test_wall_point_matches_jax_and_bounds(one_thread):
+def test_wall_point_matches_jax_and_bounds():
     """POINT at alpha 1e3, 60 iterations: the wall normal and the rotation
     exact, the in-plane drift bounded, in both packages; they agree."""
     A = synthetic.CameraPose.identity()
@@ -87,7 +78,7 @@ def test_wall_point_matches_jax_and_bounds(one_thread):
     _agree(js, ts)
 
 
-def test_wall_plane_matches_jax_and_bounds(one_thread):
+def test_wall_plane_matches_jax_and_bounds():
     """PLANE at alpha 1e3: the normal direction to 0.05 mm and the
     rotation to 0.01 deg in both packages; they agree."""
     A = synthetic.CameraPose.identity()
@@ -115,7 +106,7 @@ def bench_wall():
 
 
 @pytest.mark.parametrize("alpha", [4e5, 1e-6])
-def test_bench_wall_pair_at_eight_iterations(one_thread, bench_wall, alpha):
+def test_bench_wall_pair_at_eight_iterations(bench_wall, alpha):
     """Both blends of the bench's gate (colour carrying the in-plane
     motion, and geometry alone) run the same 8 steps in both packages."""
     la, lb, wt = bench_wall

@@ -277,6 +277,7 @@ any of these functions. The last line is
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import importlib
 import json
@@ -1148,7 +1149,7 @@ def sharded_phase(dev, smi, drive_call, require_launched, launches, slam_graph,
         require_launched(ran, ("bin_table",), 1, f"sharded {name} {where}")
         require_launched(ran, kernels, k, f"sharded {name} {where}")
 
-    sharded_launches = {}  # every rank's launches on the sharded path, summed
+    sharded_launches = collections.Counter()  # every rank's launches on the sharded path
     # A world of 1 on NCCL, in this process: its launches count on the main path.
     initialize_multihost(f"localhost:{free_port()}", 1, 0, backend="nccl", timeout_s=60)
     try:
@@ -1158,8 +1159,7 @@ def sharded_phase(dev, smi, drive_call, require_launched, launches, slam_graph,
             run = make_sharded_register(mesh, config)
             st, wall, ran = drive_call(lambda: run(f.to(dev), m.to(dev), params))
             check(name, st, wall, ran, "mesh (1, 1), NCCL")
-            for k, n in ran.items():
-                sharded_launches[k] = sharded_launches.get(k, 0) + n
+            sharded_launches.update(ran)
     finally:
         dist.destroy_process_group()
     print(f"phase 3h world of 1: {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -1219,12 +1219,10 @@ def sharded_phase(dev, smi, drive_call, require_launched, launches, slam_graph,
                     if not all(torch.equal(out[k], v) for k, v in res0["out"].items()):
                         raise AssertionError(f"{where}: rank {r['rank']}'s {task} differs "
                                              "from rank 0's")
-                for name in res0["launches"]:
-                    n = sum(r["tasks"][task]["launches"][name] for r in results)
-                    launches[name] += n
-                    sharded_launches[name] = sharded_launches.get(name, 0) + n
-                per_rank = [{k: v for k, v in r["tasks"][task]["launches"].items() if v}
-                            for r in results]
+                for r in results:
+                    launches.update(r["tasks"][task]["launches"])
+                    sharded_launches.update(r["tasks"][task]["launches"])
+                per_rank = [dict(r["tasks"][task]["launches"]) for r in results]
                 if task == "warm-up":
                     continue
                 if task in variants:
@@ -1259,8 +1257,8 @@ def sharded_phase(dev, smi, drive_call, require_launched, launches, slam_graph,
                     if not (abs(c - c_ref) <= 1e-4 * c_ref and abs(a - a_ref) <= 1.0):
                         raise AssertionError(f"sharded {task}: off the single-device solve")
             print(f"phase 3h {where}: {time.perf_counter() - t0:.1f} s", flush=True)
-    print(f"phase 3h launches on the sharded path, every rank: "
-          f"{ {k: n for k, n in sharded_launches.items() if n} }", flush=True)
+    print(f"phase 3h launches on the sharded path, every rank: {dict(sharded_launches)}",
+          flush=True)
     print(f"phase 3h sharded: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
@@ -1405,8 +1403,8 @@ def examples_phase(dev, smi, drive_call, require_launched, launches) -> None:
         outs = [r["tasks"]["multichip"] for r in results]
         if not all(torch.equal(outs[1]["out"][f], outs[0]["out"][f]) for f in fields):
             raise AssertionError("example multichip --dp 2: rank 1 differs from rank 0")
-        for name in outs[0]["launches"]:  # the sharded path's wrappers
-            launches[name] += sum(o["launches"][name] for o in outs)
+        for o in outs:
+            launches.update(o["launches"])
         report = [line for line in Path(f"{tmp}/world/rank0.log").read_text().splitlines()
                   if line.startswith(("mesh:", "registered in"))]
         for line in report:
@@ -1824,30 +1822,17 @@ def main() -> None:
 
     # ---- 3. The slice: three flagship registrations ------------------------
     phase("3")
-    counters = {"rep_assign_counts": fs.rep_assign_counts,
-                "rep_assign": fs.rep_assign,
-                "bin_table": tb.bin_table,
-                "bin_point_moments": fs.bin_point_moments,
-                "bin_min_dists": fs.bin_min_dists,
-                "bin_search": bs.bin_search,
-                "brute_nn": bn.brute_nn,
-                "bin_gn_moments": fg.bin_gn_moments,
-                "rep_top2_counts": km.rep_top2_counts,
-                "bin_knn_moments": km.bin_knn_moments}
-    launches = dict.fromkeys(counters, 0)
+    launches = collections.Counter()  # every launch on the main path, by wrapper
 
     def drive_call(call):
-        """One call on the main path: every count set to 0 just before it
-        and read just after it."""
-        for fn in counters.values():
-            fn.launches = 0
+        """One call on the main path, with its launches by wrapper."""
+        before = native.launches()
         t0 = time.perf_counter()
         out = call()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        ran = {name: fn.launches for name, fn in counters.items()}
-        for name, n in ran.items():
-            launches[name] += n
+        ran = native.launches() - before
+        launches.update(ran)
         return out, wall, ran
 
     def drive(fixed_t, moving_t, prm, config):
@@ -2205,8 +2190,8 @@ def main() -> None:
     phase("3i")
     examples_phase(dev, smi, drive_call, require_launched, launches)
 
-    for name, n in launches.items():
-        if n == 0:
+    for name in support_matrix.KERNEL_OF.values():
+        if name and not launches[name]:
             raise AssertionError(f"{name} never launched on the main path")
 
     phase("3 card vs CPU, fused vs unfused")
@@ -2221,11 +2206,11 @@ def main() -> None:
     }
     for name, (f_c, m_c, config, t_bound, a_bound) in cmp_cases.items():
         st_gpu = register(f_c.to(dev), m_c.to(dev), params, config)
-        before = {n: fn.launches for n, fn in counters.items()}
+        before = native.launches()
         t0 = time.perf_counter()
         st_cpu = register(f_c, m_c, params, config)
         cpu_s = time.perf_counter() - t0
-        if any(fn.launches != before[n] for n, fn in counters.items()):
+        if native.launches() != before:
             raise AssertionError("a CPU registration launched a kernel")
         dt = float(np.linalg.norm(st_gpu.t.double().cpu().numpy() - st_cpu.t.double().numpy()))
         dang = float(qangle_deg(qmul(st_gpu.q.cpu(), qconj(st_cpu.q))))

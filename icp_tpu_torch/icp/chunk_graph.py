@@ -18,26 +18,22 @@ span recorder, the cache serves one thread: one registration at a time per
 process.
 
 A replay runs the kernels that were captured: a caller that swaps a module's
-kernel wrapper for another function calls :func:`clear` first. Each
-replay adds the captured chunk's launches to the wrappers' ``launches``
-counters, so they count kernel launches whether Python or a graph enqueued
-them.
+kernel wrapper for another function calls :func:`clear` first. A replay
+counts what its capture counted (the capture itself counts nothing), so
+the ``kernel.<wrapper>`` counters (``kernels/native.py``) count launches
+whether Python or a graph enqueued them.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
-import importlib
 
 import torch
 
-from icp_tpu_torch.runtime.timing import count
+from icp_tpu_torch.runtime.timing import count, counters
 
 MAX_GRAPHS = 4  # keys held; using a fifth evicts the least recently used
-
-_KERNEL_MODULES = ("bin_search", "brute_nn", "fused_gn", "fused_step",
-                   "knn_moments", "table_build")
 
 
 def _parts(x):
@@ -89,18 +85,6 @@ def _static(t: torch.Tensor) -> torch.Tensor:
     return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=t.device)
 
 
-def _launch_counters() -> list:
-    """Every kernel wrapper with a ``launches`` counter (one call, one
-    launch)."""
-    found = {}
-    for name in _KERNEL_MODULES:
-        module = importlib.import_module(f"icp_tpu_torch.kernels.{name}")
-        for fn in vars(module).values():
-            if callable(fn) and hasattr(fn, "launches"):
-                found[id(fn)] = fn
-    return list(found.values())
-
-
 class ChunkGraph:
     """One captured chunk: ``body(inputs, carry) -> carry`` on static copies
     of ``inputs`` and ``carry``, replayed in place.
@@ -122,21 +106,21 @@ class ChunkGraph:
         self.load(inputs, carry)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
-        counters = _launch_counters()
         with torch.cuda.stream(side):
             body(self.inputs, self.carry)
-            before = [fn.launches for fn in counters]
+            before = counters()
             self._graph.capture_begin(capture_error_mode="thread_local")
             try:
                 out = body(self.inputs, self.carry)
                 for dst, src in zip(leaves(self.carry), leaves(out)):
                     dst.copy_(src)
             finally:
-                # The capture launched nothing: each replay launches its calls.
-                self._launches = [(fn, fn.launches - n) for fn, n in zip(counters, before)
-                                  if fn.launches != n]
-                for fn, n in zip(counters, before):
-                    fn.launches = n
+                # The capture launched nothing: take back what it counted,
+                # which each replay counts.
+                self._counted = {name: n - before.get(name, 0)
+                                 for name, n in counters().items() if n != before.get(name, 0)}
+                for name, n in self._counted.items():
+                    count(name, -n)
                 self._graph.capture_end()
         torch.cuda.current_stream(self.device).wait_stream(side)
 
@@ -152,8 +136,8 @@ class ChunkGraph:
         """One chunk on the current stream."""
         self._graph.replay()
         count("icp.chunk_graph.replays")
-        for fn, n in self._launches:
-            fn.launches += n
+        for name, n in self._counted.items():
+            count(name, n)
 
     def take(self):
         """A copy of the carry, which the next :meth:`load` overwrites."""

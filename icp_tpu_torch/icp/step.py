@@ -219,7 +219,12 @@ def icp_step(state: ICPState, moving8, target: Target, params: ICPParams,
     else:
         qk, tk, sk = _unfused_increment(state, moving8, target, params, config,
                                         moving_normals)
-    # Accumulate: R = R_k R;  t = s_k R_k t + t_k;  s = s_k s.
+    return accumulate(state, qk, tk, sk)
+
+
+def accumulate(state: ICPState, qk, tk, sk) -> ICPState:
+    """The reference's accumulation of a step's increment (qk, tk, sk):
+    R = R_k R;  t = s_k R_k t + t_k;  s = s_k s."""
     q = qnormalize(qmul(qk, state.q))
     t = sk * qrotate(qk, state.t) + tk
     s = sk * state.s

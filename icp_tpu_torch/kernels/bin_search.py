@@ -74,13 +74,7 @@ def bin_search(qg_w: torch.Tensor, bins_c: torch.Tensor,
         raise ValueError("bin_search: bin capacity 0")
     best = torch.empty((n_r, cq), dtype=f32, device=dev)
     matched = torch.empty((n_r, cq, v), dtype=f32, device=dev)
-    lib = native.load_library()
-    native.check(lib.icp_bin_search(
-        qg_w.data_ptr(), bins_c.data_ptr(), sq_b_masked.data_ptr(),
-        vals.data_ptr(), n_r, cq, cb, v, best.data_ptr(), matched.data_ptr(),
-        native.stream_ptr(dev)), "icp_bin_search")
-    bin_search.launches += 1
+    native.launch("icp_bin_search", dev, qg_w.data_ptr(), bins_c.data_ptr(),
+                  sq_b_masked.data_ptr(), vals.data_ptr(), n_r, cq, cb, v,
+                  best.data_ptr(), matched.data_ptr())
     return best, matched
-
-
-bin_search.launches = 0

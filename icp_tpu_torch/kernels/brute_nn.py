@@ -87,14 +87,7 @@ def brute_nn(qw: torch.Tensor, db: torch.Tensor, sq_db: torch.Tensor, *,
     idx = torch.empty((m,), dtype=torch.int32, device=dev)
     score = torch.empty((m,), dtype=f32, device=dev)
     rescored = torch.empty((m,), dtype=torch.int32, device=dev) if count_rescored else None
-    lib = native.load_library()
-    native.check(lib.icp_brute_nn(
-        qw.data_ptr(), db.data_ptr(), sq_db.data_ptr(), ms.data_ptr(),
-        KAPPA * 2.0 ** -20, MARGIN_FLOOR, m, n, idx.data_ptr(), score.data_ptr(),
-        None if rescored is None else rescored.data_ptr(),
-        native.stream_ptr(dev)), "icp_brute_nn")
-    brute_nn.launches += 1
+    native.launch("icp_brute_nn", dev, qw.data_ptr(), db.data_ptr(), sq_db.data_ptr(),
+                  ms.data_ptr(), KAPPA * 2.0 ** -20, MARGIN_FLOOR, m, n, idx.data_ptr(),
+                  score.data_ptr(), None if rescored is None else rescored.data_ptr())
     return (idx, score, rescored) if count_rescored else (idx, score)
-
-
-brute_nn.launches = 0

@@ -145,18 +145,12 @@ def bin_gn_moments(mg: torch.Tensor, nm: torch.Tensor | None,
     scal = device_scalars(dev, alpha, robust_delta, gicp_eps)
     P = torch.empty((n_r, 8, 8), dtype=f32, device=dev)
     Pz = torch.empty((n_r, 8, 8), dtype=f32, device=dev) if mode == "gicp" else None
-    lib = native.load_library()
-    native.check(lib.icp_bin_gn_moments(
-        mg.data_ptr(), ld_mg, nm_ptr, ld_nm, qvalid.data_ptr(), reps.data_ptr(), bins_vals.data_ptr(),
-        sq_b_masked.data_ptr(), G.data_ptr(), b_row.data_ptr(), scal.data_ptr(),
-        n_r, cq, cb, GN_MODES.index(mode), int(weighted), kind, P.data_ptr(),
-        None if Pz is None else Pz.data_ptr(), native.stream_ptr(dev)),
-        "icp_bin_gn_moments")
-    bin_gn_moments.launches += 1
+    native.launch(
+        "icp_bin_gn_moments", dev, mg.data_ptr(), ld_mg, nm_ptr, ld_nm, qvalid.data_ptr(),
+        reps.data_ptr(), bins_vals.data_ptr(), sq_b_masked.data_ptr(), G.data_ptr(),
+        b_row.data_ptr(), scal.data_ptr(), n_r, cq, cb, GN_MODES.index(mode), int(weighted),
+        kind, P.data_ptr(), None if Pz is None else Pz.data_ptr())
     return (P, Pz) if mode == "gicp" else P
-
-
-bin_gn_moments.launches = 0
 
 
 def gicp_const_moment(P_z: torch.Tensor) -> torch.Tensor:

@@ -148,15 +148,9 @@ def rep_assign(moving8: torch.Tensor, C: torch.Tensor,
     native.require(C, "C", (8, n_r), torch.float32, dev)
     native.require(srow, "srow", (1, n_r), torch.float32, dev)
     rid = torch.empty((m,), dtype=torch.int32, device=dev)
-    lib = native.load_library()
-    native.check(lib.icp_rep_assign(
-        moving8.data_ptr(), C.data_ptr(), srow.data_ptr(), m, n_r,
-        rid.data_ptr(), native.stream_ptr(dev)), "icp_rep_assign")
-    rep_assign.launches += 1
+    native.launch("icp_rep_assign", dev, moving8.data_ptr(), C.data_ptr(), srow.data_ptr(),
+                  m, n_r, rid.data_ptr())
     return rid
-
-
-rep_assign.launches = 0
 
 
 def rep_assign_counts_ref(moving8: torch.Tensor, C: torch.Tensor,
@@ -192,16 +186,9 @@ def rep_assign_counts(moving8: torch.Tensor, C: torch.Tensor,
     native.require(srow, "srow", (1, n_r), torch.float32, dev)
     rid = torch.empty((m,), dtype=torch.int32, device=dev)
     counts = torch.zeros((n_r,), dtype=torch.int32, device=dev)
-    lib = native.load_library()
-    native.check(lib.icp_rep_assign_counts(
-        moving8.data_ptr(), C.data_ptr(), srow.data_ptr(), m, n_r,
-        rid.data_ptr(), counts.data_ptr(), native.stream_ptr(dev)),
-        "icp_rep_assign_counts")
-    rep_assign_counts.launches += 1
+    native.launch("icp_rep_assign_counts", dev, moving8.data_ptr(), C.data_ptr(),
+                  srow.data_ptr(), m, n_r, rid.data_ptr(), counts.data_ptr())
     return rid, counts
-
-
-rep_assign_counts.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -330,17 +317,11 @@ def bin_point_moments(mg: torch.Tensor, qvalid: torch.Tensor,
     kind = robust_kind(robust)
     scal = device_scalars(dev, alpha, robust_delta)
     P = torch.empty((n_r, 8, 8), dtype=f32, device=dev)
-    lib = native.load_library()
-    native.check(lib.icp_bin_point_moments(
-        mg.data_ptr(), qvalid.data_ptr(), reps.data_ptr(), bins_c.data_ptr(),
-        sq_b_masked.data_ptr(), G.data_ptr(), b_row.data_ptr(),
-        scal.data_ptr(), n_r, cq, cb, int(weighted), kind, P.data_ptr(),
-        native.stream_ptr(dev)), "icp_bin_point_moments")
-    bin_point_moments.launches += 1
+    native.launch("icp_bin_point_moments", dev, mg.data_ptr(), qvalid.data_ptr(),
+                  reps.data_ptr(), bins_c.data_ptr(), sq_b_masked.data_ptr(), G.data_ptr(),
+                  b_row.data_ptr(), scal.data_ptr(), n_r, cq, cb, int(weighted), kind,
+                  P.data_ptr())
     return P
-
-
-bin_point_moments.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -390,17 +371,10 @@ def bin_min_dists(mg: torch.Tensor, qvalid: torch.Tensor, reps: torch.Tensor,
     native.require(b_row, "b_row", (1, 8), f32, dev)
     scal = device_scalars(dev, alpha)
     d2 = torch.empty((n_r, cq), dtype=f32, device=dev)
-    lib = native.load_library()
-    native.check(lib.icp_bin_min_dists(
-        mg.data_ptr(), ld_mg, qvalid.data_ptr(), reps.data_ptr(),
-        bins_c.data_ptr(), sq_b_masked.data_ptr(), G.data_ptr(), b_row.data_ptr(),
-        scal.data_ptr(), n_r, cq, cb, d2.data_ptr(), native.stream_ptr(dev)),
-        "icp_bin_min_dists")
-    bin_min_dists.launches += 1
+    native.launch("icp_bin_min_dists", dev, mg.data_ptr(), ld_mg, qvalid.data_ptr(),
+                  reps.data_ptr(), bins_c.data_ptr(), sq_b_masked.data_ptr(), G.data_ptr(),
+                  b_row.data_ptr(), scal.data_ptr(), n_r, cq, cb, d2.data_ptr())
     return d2
-
-
-bin_min_dists.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -108,15 +108,9 @@ def rep_top2_counts(p3: torch.Tensor, reps: torch.Tensor):
     i1 = torch.empty((m,), dtype=torch.int32, device=dev)
     i2 = torch.empty((m,), dtype=torch.int32, device=dev)
     counts = torch.zeros((2, n_r), dtype=torch.int32, device=dev)
-    lib = native.load_library()
-    native.check(lib.icp_rep_top2_counts(
-        p3.data_ptr(), reps.data_ptr(), m, n_r, i1.data_ptr(), i2.data_ptr(),
-        counts.data_ptr(), native.stream_ptr(dev)), "icp_rep_top2_counts")
-    rep_top2_counts.launches += 1
+    native.launch("icp_rep_top2_counts", dev, p3.data_ptr(), reps.data_ptr(), m, n_r,
+                  i1.data_ptr(), i2.data_ptr(), counts.data_ptr())
     return i1, i2, counts
-
-
-rep_top2_counts.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -220,18 +214,12 @@ def bin_knn_moments(qp: torch.Tensor, bins: torch.Tensor, reps: torch.Tensor,
     native.require(reps, "reps", (n_r, 3), f32, dev)
     native.require(bvalid, "bvalid", (n_r, cb), torch.bool, dev)
     out = torch.empty((7, n_r, cq), dtype=f32, device=dev)
-    lib = native.load_library()
     # Where a block's candidates, d2 rows and selection buffers do not fit
     # in shared memory (large cb), or the query tiles pass the grid's second
     # dimension (cq past ~131000), the kernel keeps them in this workspace.
     floats = _workspace_floats(dev.index, n_r, cq, cb)
     ws = torch.empty((floats,), dtype=f32, device=dev) if floats else None
-    native.check(lib.icp_bin_knn_moments(
-        qp.data_ptr(), ld_q, bins.data_ptr(), reps.data_ptr(), bvalid.data_ptr(),
-        n_r, cq, cb, k, out.data_ptr(), None if ws is None else ws.data_ptr(),
-        native.stream_ptr(dev)), "icp_bin_knn_moments")
-    bin_knn_moments.launches += 1
+    native.launch("icp_bin_knn_moments", dev, qp.data_ptr(), ld_q, bins.data_ptr(),
+                  reps.data_ptr(), bvalid.data_ptr(), n_r, cq, cb, k, out.data_ptr(),
+                  None if ws is None else ws.data_ptr())
     return tuple(out[u] for u in range(6)), out[6]
-
-
-bin_knn_moments.launches = 0

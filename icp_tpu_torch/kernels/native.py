@@ -15,10 +15,15 @@ shared memory, a grid's second dimension) and it launched nothing; the C
 side knows its tiles and the card, and names the limit and the shape.
 :func:`check` raises a ``ValueError`` with that text for the latter and a
 ``RuntimeError`` on any other non-zero value.
+
+Every wrapper launches through :func:`launch`, which counts each launch
+that succeeded in the program's counters (``runtime/timing.py``) as
+``kernel.<wrapper>``; :func:`launches` reads them back.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -30,6 +35,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from icp_tpu_torch.runtime.timing import count, counters
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "icp_tpu_torch"
@@ -199,6 +206,24 @@ def check(status: int, name: str) -> None:
 def stream_ptr(device: torch.device) -> int:
     """Handle of PyTorch's current stream on ``device``."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``entry`` (a name of :data:`SIGNATURES`) with
+    ``args`` and PyTorch's current stream on ``device``, raise as
+    :func:`check` does, and count the launch as ``kernel.<entry less
+    "icp_">``: the name of the wrapper that launches it."""
+    check(getattr(load_library(), entry)(*args, stream_ptr(device)), entry)
+    count("kernel." + entry.removeprefix("icp_"))
+
+
+def launches() -> collections.Counter:
+    """{wrapper name: launches} since the process began, from the
+    ``kernel.*`` counters; a name that is absent launched nothing. The
+    difference of two readings counts the launches between them."""
+    return collections.Counter({name.removeprefix("kernel."): n
+                                for name, n in counters().items()
+                                if name.startswith("kernel.") and n})
 
 
 def require(t: torch.Tensor, name: str, shape: tuple, dtype: torch.dtype,

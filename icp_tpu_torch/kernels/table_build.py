@@ -85,12 +85,6 @@ def bin_table(rows, starts: torch.Tensor, *, capacity: int,
     if order is not None:
         native.require(order, "order", (m,), torch.int32, dev)
     out = torch.empty((n_r, capacity, width), dtype=torch.float32, device=dev)
-    lib = native.load_library()
-    native.check(lib.icp_bin_table(
-        *ptrs, None if order is None else order.data_ptr(), starts.data_ptr(), m, n_r,
-        capacity, out.data_ptr(), native.stream_ptr(dev)), "icp_bin_table")
-    bin_table.launches += 1
+    native.launch("icp_bin_table", dev, *ptrs, None if order is None else order.data_ptr(),
+                  starts.data_ptr(), m, n_r, capacity, out.data_ptr())
     return out
-
-
-bin_table.launches = 0

@@ -43,8 +43,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from icp_tpu_torch.kernels import bin_search, brute_nn  # the K5 and K6 wrappers
-from icp_tpu_torch.kernels import fused_gn, fused_step, native, table_build
+from icp_tpu_torch.kernels import native
 from icp_tpu_torch.parallel.distributed import initialize_multihost
 from icp_tpu_torch.parallel.mesh import make_mesh
 from icp_tpu_torch.parallel.sharded import make_sharded_register
@@ -52,19 +51,6 @@ from icp_tpu_torch.slam import bundle_adjustment as ba
 from icp_tpu_torch.slam import pose_graph as pg
 
 ROOT = Path(__file__).resolve().parent.parent.parent
-
-
-def _counters() -> dict:
-    """The kernel wrappers whose launches a rank reports: K2, K3 and K5 run
-    on the sharded path; the others must stay at 0 there."""
-    return {"bin_table": table_build.bin_table,
-            "bin_point_moments": fused_step.bin_point_moments,
-            "bin_search": bin_search,
-            "rep_assign_counts": fused_step.rep_assign_counts,
-            "rep_assign": fused_step.rep_assign,
-            "bin_min_dists": fused_step.bin_min_dists,
-            "bin_gn_moments": fused_gn.bin_gn_moments,
-            "brute_nn": brute_nn}
 
 
 def _run_task(task: dict, mesh) -> dict:
@@ -109,11 +95,9 @@ def rank_main(argv=None) -> None:
         device = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(device)
     mesh = make_mesh(*job["mesh"], device)
-    counters = _counters()
     results = {}
     for task in job["tasks"]:
-        for fn in counters.values():
-            fn.launches = 0
+        before = native.launches()
         t0 = time.perf_counter()
         out = _run_task(task, mesh)
         if device.type == "cuda":
@@ -121,7 +105,7 @@ def rank_main(argv=None) -> None:
         wall = time.perf_counter() - t0
         results[task["name"]] = {
             "out": {k: v.cpu() for k, v in out.items()}, "wall": wall,
-            "launches": {name: fn.launches for name, fn in counters.items()}}
+            "launches": native.launches() - before}
     out_dir = Path(args.job).parent
     torch.save({"rank": rank, "coords": (mesh.dp_index, mesh.mp_index),
                 "device": str(device), "tasks": results}, out_dir / f"rank{rank}.pt")

@@ -42,9 +42,10 @@ import torch
 from icp_tpu_torch.icp.gicp import gicp_system_partials
 from icp_tpu_torch.icp.horn import solve_step_transform
 from icp_tpu_torch.icp.plane import plane_system_partials, solve_plane_system
-from icp_tpu_torch.icp.quaternion import qmul, qnormalize, qrotate, transform_points
-from icp_tpu_torch.icp.run import CHUNK, _select, converged
+from icp_tpu_torch.icp.quaternion import qrotate, transform_points
+from icp_tpu_torch.icp.run import CHUNK, _running, _select, build_index, converged
 from icp_tpu_torch.icp.state import ICPState, identity_state
+from icp_tpu_torch.icp.step import accumulate
 from icp_tpu_torch.kernels.fused_step import (
     assemble_point_moments,
     bin_point_moments,
@@ -61,9 +62,8 @@ from icp_tpu_torch.ops.moments import (
     s_matrix,
 )
 from icp_tpu_torch.ops.normals import normals_for
-from icp_tpu_torch.ops.sampling import sample_representative_indices
 from icp_tpu_torch.parallel.mesh import DP_AXIS, MP_AXIS, Mesh, psum_pytree
-from icp_tpu_torch.rbc.construct import RBCIndex, rbc_construct
+from icp_tpu_torch.rbc.construct import RBCIndex
 from icp_tpu_torch.rbc.grouping import group_rows_by_bin
 from icp_tpu_torch.rbc.search import bin_phase2
 from icp_tpu_torch.runtime.config import (
@@ -197,7 +197,7 @@ def sharded_icp_step(state: ICPState, moving_local: torch.Tensor,
             qk, tk, sk = solve_step_transform(
                 S11, mean_f, mean_m, mode=config.rotation.value,
                 estimate_scale=config.estimate_scale)
-            return _accumulate(state, qk, tk, sk)
+            return accumulate(state, qk, tk, sk)
 
         # The validity of each moving point rides in query lane 7, from its
         # ORIGINAL coordinates (a transformed invalid point sits at t, not 0).
@@ -270,16 +270,7 @@ def sharded_icp_step(state: ICPState, moving_local: torch.Tensor,
         qk, tk, sk = solve_step_transform(
             S11, mean_f, mean_m, mode=config.rotation.value,
             estimate_scale=config.estimate_scale)
-    return _accumulate(state, qk, tk, sk)
-
-
-def _accumulate(state: ICPState, qk, tk, sk) -> ICPState:
-    """The reference's accumulation: R = R_k R;  t = s_k R_k t + t_k;
-    s = s_k s."""
-    q = qnormalize(qmul(qk, state.q))
-    t = sk * qrotate(qk, state.t) + tk
-    s = sk * state.s
-    return ICPState(q=q, t=t, s=s, qk=qk, tk=tk, sk=sk, k=state.k + 1)
+    return accumulate(state, qk, tk, sk)
 
 
 def sharded_icp_run(moving_local: torch.Tensor, index: RBCIndex,
@@ -291,14 +282,9 @@ def sharded_icp_run(moving_local: torch.Tensor, index: RBCIndex,
     chunk (the same on every rank)."""
     state = identity_state(moving_local.dtype, moving_local.device)
     done = torch.zeros((), dtype=torch.bool, device=moving_local.device)
-
-    def running(s: ICPState, d: torch.Tensor) -> torch.Tensor:
-        return torch.logical_and(s.k < config.max_iterations,
-                                 torch.logical_or(s.k == 0, torch.logical_not(d)))
-
-    while bool(running(state, done)):
+    while bool(_running(state, done, config)):
         for _ in range(CHUNK):
-            take = running(state, done)
+            take = _running(state, done, config)
             new = sharded_icp_step(state, moving_local, index, params, config,
                                    n_r_local, query_capacity, mesh,
                                    mnormals_local=mnormals_local)
@@ -371,9 +357,5 @@ def sharded_inputs(fixed8: torch.Tensor, moving8: torch.Tensor, params: ICPParam
         mnormals = moving8.new_zeros((moving8.shape[0], 3))
     m_local = config.m // mesh.shape[DP_AXIS]
     lo = mesh.dp_index * m_local
-    rep_ids = sample_representative_indices(fixed8.shape[0], config.n_r,
-                                            config.rep_grid, device=dev)
-    normals = normals_for(fixed8, config.normal_mode) if config.needs_normals else None
-    index = rbc_construct(fixed8, fixed8[rep_ids.long()], params.alpha,
-                          config.bin_capacity, rep_db_ids=rep_ids, normals=normals)
-    return index, moving8[lo:lo + m_local], mnormals[lo:lo + m_local]
+    return (build_index(fixed8, params, config), moving8[lo:lo + m_local],
+            mnormals[lo:lo + m_local])

@@ -53,6 +53,7 @@ import torch
 from icp_tpu_torch.kernels import fused_gn as fg
 from icp_tpu_torch.kernels import fused_step as fs
 from icp_tpu_torch.kernels import knn_moments as km
+from icp_tpu_torch.kernels import native
 from icp_tpu_torch.kernels import table_build as tb
 from icp_tpu_torch.runtime import support_matrix as sm
 
@@ -288,14 +289,6 @@ def check_knn(args, kwargs):
     ok = (torch.equal(cnt, cnt_t) and rel <= KNN_BAR and bitwise(ck, torch.stack(again[0]))
           and torch.equal(cnt, again[1]))
     return ok, err, f"n bitwise, max|dC| <= {KNN_BAR} of the query's largest, repeats bitwise"
-
-
-def launch_counts() -> dict:
-    """{wrapper: launches so far} of every kernel of the matrix."""
-    wrappers = (fs.rep_assign_counts, fs.rep_assign, tb.bin_table, fs.bin_point_moments,
-                fs.bin_min_dists, bs.bin_search, bn.brute_nn, fg.bin_gn_moments,
-                km.bin_knn_moments, km.rep_top2_counts)
-    return {fn.__name__: fn.launches for fn in wrappers}
 
 
 def device_ms(fn, reps: int = 5):
@@ -585,11 +578,11 @@ def _e2e_cases(dev, pairs) -> dict:
              (0.05, 0.005), (1.0, 0.05), (Q_GT_R, T_GT_R))):
         def check(config=config, f=f, mv=mv, bars=bars, gate=gate, q_gt=q_gt, t_gt=t_gt):
             st = register(f.to(dev), mv.to(dev), params, config)
-            before = launch_counts()
+            before = native.launches()
             st_cpu = register(f.cpu(), mv.cpu(), params, config)
-            if launch_counts() != before:  # the CPU reference must be the twins alone
+            if native.launches() != before:  # the CPU reference must be the twins alone
                 raise AssertionError(f"e2e-{name}: the CPU registration launched a kernel: "
-                                     f"{before} -> {launch_counts()}")
+                                     f"{before} -> {native.launches()}")
             dt = float(np.linalg.norm(st.t.double().cpu().numpy() - st_cpu.t.double().numpy()))
             da = float(qangle_deg(qmul(st.q.cpu(), qconj(st_cpu.q))))
             q = torch.tensor(q_gt, dtype=torch.float32)
@@ -738,8 +731,6 @@ def card() -> str:
 
 def table(results: dict, seconds: float) -> dict:
     """The table ``--write`` records."""
-    from icp_tpu_torch.kernels import native
-
     return {"digest": native.source_digest(), "wrappers_digest": sm.wrappers_digest(),
             "card": card(),
             "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -756,8 +747,6 @@ def main(argv=None) -> int:
         print("support_sweep: no CUDA device; the matrix is verified on the card",
               file=sys.stderr)
         return 2
-    from icp_tpu_torch.kernels import native
-
     native.load_library()
     t0 = time.perf_counter()
     results = sweep(torch.device("cuda", 0), log=lambda s: print(s, flush=True))

@@ -308,7 +308,7 @@ def _odometry(dev, n_frames: int = 10) -> dict:
     """The profile of one 10-frame chain, and its launches per frame pair."""
     from chip_smoke import ALPHA, _render_terrain
     from icp_tpu_torch import ICPConfig, ICPParams, Objective
-    from icp_tpu_torch.kernels import fused_gn, fused_step, table_build
+    from icp_tpu_torch.kernels import native
     from icp_tpu_torch.sensors import synthetic
     from icp_tpu_torch.slam.odometry import frame_to_landmarks, odometry_chain_device
 
@@ -317,20 +317,18 @@ def _odometry(dev, n_frames: int = 10) -> dict:
     lms = torch.stack([frame_to_landmarks(torch.from_numpy(f).to(dev)) for f in frames])
     params = ICPParams(alpha=ALPHA, angle_threshold_deg=0.0, translation_threshold=0.0).to(dev)
     cfg = ICPConfig(max_iterations=8, estimate_scale=False, objective=Objective.GICP)
-    wrappers = {"rep_assign_counts": fused_step.rep_assign_counts,
-                "bin_table": table_build.bin_table, "bin_gn_moments": fused_gn.bin_gn_moments}
     odometry_chain_device(lms, params, cfg)
-    for fn in wrappers.values():
-        fn.launches = 0
+    before = native.launches()
     res = _profile(lambda: odometry_chain_device(lms, params, cfg), warmup=1)
+    ran = native.launches() - before
     pairs = n_frames - 1
     res["pairs"] = pairs
     res["device_events_per_pair"] = res["device_events"] / pairs
     res["wall_ms_per_pair"] = res["wall_ms"] / pairs
     res["device_ms_per_pair"] = res["device_ms"] / pairs
     # Each wrapper was called by the warm-up and the profiled call.
-    res["kernel_launches_per_pair"] = {name: fn.launches / (2 * pairs)
-                                       for name, fn in wrappers.items()}
+    res["kernel_launches_per_pair"] = {name: ran[name] / (2 * pairs) for name in
+                                       ("rep_assign_counts", "bin_table", "bin_gn_moments")}
     res["render_s"] = render_s
     print(f"odometry chain, {n_frames} real-terrain frames (GICP, 8 iterations): wall "
           f"{res['wall_ms']} ms, device {res['device_ms']} ms in {res['device_events']} events, "

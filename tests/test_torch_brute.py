@@ -16,6 +16,7 @@ import torch
 
 from icp_tpu.kernels.brute_nn import brute_nn_pallas, nearest_neighbor_brute_pallas
 from icp_tpu.ops import distance as JD
+from icp_tpu_torch.kernels import native
 from icp_tpu_torch.ops import distance as TD
 from tests.utils import make_cloud8
 
@@ -57,7 +58,7 @@ def test_brute_nn_twin_matches_pallas(rng, m, n, tiles):
     assert idx.dtype == torch.int32 and score.dtype == torch.float32
     np.testing.assert_array_equal(idx.numpy(), np.asarray(i_p))
     np.testing.assert_allclose(score.numpy(), np.asarray(s_p), rtol=1e-4, atol=1.0)
-    assert TB.brute_nn.launches == 0
+    assert native.launches()["brute_nn"] == 0
 
 
 def test_brute_nn_planted_tie_picks_first(rng):

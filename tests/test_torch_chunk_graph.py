@@ -22,7 +22,6 @@ from icp_tpu_torch import (Correspondence, ICPConfig, ICPParams, Objective, Rota
                            icp_step)
 from icp_tpu_torch.icp import chunk_graph, run
 from icp_tpu_torch.icp.state import ICPState, identity_state
-from icp_tpu_torch.runtime import support_sweep
 from icp_tpu_torch.runtime.timing import counters
 from icp_tpu_torch.sensors.synthetic import synthetic_pair
 
@@ -174,13 +173,6 @@ def test_tree_helpers_keep_containers_and_layouts():
     assert copied.targets[0].layout.grouped[0].stride() == grouped.stride()
     states = chunk_graph.tree_map(torch.clone, carry)
     assert type(states) is run._Carry and type(states.states[0]) is ICPState
-
-
-def test_replays_count_every_kernel_wrapper():
-    """A replay adds its captured launches to each wrapper's counter: the
-    wrappers it finds are every kernel of the support matrix."""
-    found = {fn.__name__ for fn in chunk_graph._launch_counters()}
-    assert found == set(support_sweep.launch_counts())
 
 
 class _FakeGraph:

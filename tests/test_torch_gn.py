@@ -24,6 +24,7 @@ from icp_tpu_torch.icp import plane as TP
 from icp_tpu_torch.interop import index_from_numpy
 from icp_tpu_torch.kernels import fused_gn as TG
 from icp_tpu_torch.kernels import fused_step as TF
+from icp_tpu_torch.kernels import native
 from icp_tpu_torch.rbc import search as TR
 from tests.utils import make_cloud8, random_quat
 
@@ -101,7 +102,7 @@ def test_bin_gn_moments_twin_matches_jax(rng, mode, weighted, robust):
         assert np.abs(g.numpy() - w).max() <= 1e-4 * np.abs(w).max()
         # The empty bin contributes nothing.
         np.testing.assert_array_equal(g.numpy()[2], 0.0)
-    assert TG.bin_gn_moments.launches == 0
+    assert native.launches()["bin_gn_moments"] == 0
 
 
 def test_bin_gn_moments_scalars_as_tensors_equal_floats(rng):

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from icp_tpu_torch.kernels import native
 from icp_tpu_torch.sensors.synthetic import synthetic_pair
 from icp_tpu_torch.sensors.brute_sets import ADVERSARIAL, adversarial
 from icp_tpu_torch.sensors.knn_sets import ADVERSARIAL as KNN_ADVERSARIAL
@@ -52,11 +53,11 @@ def test_rep_assign_counts_kernel_matches_twin(flagship):
     from icp_tpu_torch.kernels import fused_step as fs
 
     f = flagship
-    before = fs.rep_assign_counts.launches
+    before = native.launches()
     rid, counts = fs.rep_assign_counts(f["moving"], f["C"], f["srow"])
     rid_t, counts_t = fs.rep_assign_counts_ref(f["moving"], f["C"], f["srow"])
     torch.cuda.synchronize()
-    assert fs.rep_assign_counts.launches == before + 1
+    assert (native.launches() - before)["rep_assign_counts"] == 1
     assert torch.equal(counts, torch.bincount(rid, minlength=N_R).to(torch.int32))
     assert int(counts.sum()) == M
     # Same rounding as the twin (lane order, bf16x3): the same picks.
@@ -278,11 +279,11 @@ def test_bin_min_dists_kernel_matches_twin(rendered, case):
         cq, cb = {256: (96, 128), 16: (1536, 2048), 8: (3072, 4096)}[n_r]
         args = tuple(torch.from_numpy(x).to(dev) for x in min_dists_all_equal(n_r, cq, cb))
         args += (ALPHA,)
-    before = fs.bin_min_dists.launches
+    before = native.launches()
     got = fs.bin_min_dists(*args)
     want = fs.bin_min_dists_ref(*args)
     torch.cuda.synchronize()
-    assert fs.bin_min_dists.launches == before + 1
+    assert (native.launches() - before)["bin_min_dists"] == 1
     assert torch.equal(torch.isfinite(got), torch.isfinite(want))
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert bool(torch.isfinite(want).any()) and bool(torch.isinf(want).any())
@@ -348,12 +349,12 @@ def test_rep_assign_kernel_matches_twin_and_k1(flagship):
     from icp_tpu_torch.kernels import fused_step as fs
 
     f = flagship
-    before = fs.rep_assign.launches
+    before = native.launches()
     rid = fs.rep_assign(f["moving"], f["C"], f["srow"])
     rid_t = fs.rep_assign_ref(f["moving"], f["C"], f["srow"])
     rid_k1, _ = fs.rep_assign_counts(f["moving"], f["C"], f["srow"])
     torch.cuda.synchronize()
-    assert fs.rep_assign.launches == before + 1
+    assert (native.launches() - before)["rep_assign"] == 1
     assert rid.dtype == torch.int32
     assert torch.equal(rid, rid_t) and torch.equal(rid, rid_k1)
 
@@ -390,11 +391,11 @@ def test_bin_search_kernel_bitwise(cuda_dev, n_r, cq, cb, v):
     bs = importlib.import_module("icp_tpu_torch.kernels.bin_search")
 
     args = _search_tensors(cuda_dev, n_r, cq, cb, v)
-    before = bs.bin_search.launches
+    before = native.launches()
     best, matched = bs.bin_search(*args)
     best_t, matched_t = bs.bin_search_ref(*args)
     torch.cuda.synchronize()
-    assert bs.bin_search.launches == before + 1
+    assert (native.launches() - before)["bin_search"] == 1
     assert torch.equal(best.view(torch.int32), best_t.view(torch.int32))
     assert torch.equal(matched.view(torch.int32), matched_t.view(torch.int32))
     assert torch.isinf(best[1]).all() and torch.isfinite(matched).all()
@@ -465,11 +466,11 @@ def test_brute_nn_kernel_bitwise(cuda_dev, m, n):
     q, db, w8 = _brute_tensors(cuda_dev, m, n)
     qw, db, sq_db = ((q * w8).to(cuda_dev), db.to(cuda_dev),
                      torch.sum(db * w8 * db, dim=-1).to(cuda_dev))
-    before = bn.brute_nn.launches
+    before = native.launches()
     idx, score = bn.brute_nn(qw, db, sq_db)
     idx_t, score_t = bn.brute_nn_ref(qw, db, sq_db)
     torch.cuda.synchronize()
-    assert bn.brute_nn.launches == before + 1
+    assert (native.launches() - before)["brute_nn"] == 1
     assert torch.equal(idx, idx_t)
     assert torch.equal(score.view(torch.int32), score_t.view(torch.int32))
 
@@ -545,11 +546,11 @@ def test_rep_top2_counts_kernel_matches_twin(cuda_dev, name):
     from icp_tpu_torch.kernels import knn_moments as km
 
     p, reps = _top2_case(name, cuda_dev)
-    before = km.rep_top2_counts.launches
+    before = native.launches()
     got = km.rep_top2_counts(p, reps)
     want = km.rep_top2_counts_ref(p, reps)
     torch.cuda.synchronize()
-    assert km.rep_top2_counts.launches == before + 1
+    assert (native.launches() - before)["rep_top2_counts"] == 1
     n_r = reps.shape[0]
     for j in range(2):
         assert torch.equal(got[2][j], torch.bincount(got[j], minlength=n_r).to(torch.int32))
@@ -577,12 +578,12 @@ def _check_knn_moments(args, k):
     query's largest, and a second launch bitwise equal to the first."""
     from icp_tpu_torch.kernels import knn_moments as km
 
-    before = km.bin_knn_moments.launches
+    before = native.launches()
     comps, cnt = km.bin_knn_moments(*args, k=k)
     again = km.bin_knn_moments(*args, k=k)
     comps_t, cnt_t = km.bin_knn_moments_ref(*args, k=k)
     torch.cuda.synchronize()
-    assert km.bin_knn_moments.launches == before + 2
+    assert (native.launches() - before)["bin_knn_moments"] == 2
     assert torch.equal(cnt, cnt_t)
     got, want = torch.stack(comps), torch.stack(comps_t)
     scale = want.abs().amax(dim=0).clamp(min=1.0)
@@ -657,14 +658,14 @@ def test_bin_table_gather_bitwise(cuda_dev, m, n_r, cap):
     pts = torch.from_numpy(g.normal(size=(m, 8)).astype(np.float32)).to(cuda_dev)
     nrm = torch.from_numpy(g.normal(size=(m, 3)).astype(np.float32)).to(cuda_dev)
     col = torch.arange(m, dtype=torch.float32, device=cuda_dev)[:, None]
-    before = tb.bin_table.launches
+    before = native.launches()
     cases = [(pts,), (pts, nrm), (pts, col, nrm), (pts[:, :3], col), (pts[:, :3],)]
     for srcs in cases:
         got = tb.bin_table(srcs, offsets, capacity=cap, order=sidx)
         want = tb.bin_table_ref(tb.gathered_rows(srcs, sidx), offsets, capacity=cap)
         torch.cuda.synchronize()
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    assert tb.bin_table.launches == before + len(cases)
+    assert (native.launches() - before)["bin_table"] == len(cases)
 
 
 @pytest.fixture(scope="module")
@@ -884,12 +885,16 @@ def test_brute_nn_filter_bitwise_on_adversarial_sets(cuda_dev, name):
 def test_brute_nn_filter_on_the_flagship_step(cuda_dev):
     """What the first BRUTE POINT step of the flagship pair hands K6 (16384 x
     16384): bitwise on every query, and a filter (few re-scored pairs)."""
-    from icp_tpu_torch import Correspondence, ICPConfig
+    from icp_tpu_torch import Correspondence, ICPConfig, ICPParams, icp_step
+    from icp_tpu_torch.icp.state import identity_state
+    from icp_tpu_torch.ops import distance
+    from icp_tpu_torch.runtime.support_sweep import capture
+    from icp_tpu_torch.sensors.brute_sets import ALPHA
 
-    from test_torch_brute_margin import brute_step_args
-
-    args = brute_step_args(*synthetic_pair(M), ICPConfig(correspondence=Correspondence.BRUTE),
-                           cuda_dev)
+    fixed, moving = (torch.from_numpy(a).to(cuda_dev) for a in synthetic_pair(M))
+    args, _ = capture(distance, "brute_nn", lambda: icp_step(
+        identity_state(torch.float32, cuda_dev), moving, fixed,
+        ICPParams(alpha=ALPHA).to(cuda_dev), ICPConfig(correspondence=Correspondence.BRUTE)))
     rescored = _brute_bitwise(*args).double()
     print(f"re-scored pairs per query: mean {float(rescored.mean())}, "
           f"max {int(rescored.max())}")
@@ -1101,7 +1106,9 @@ def test_icp_run_graph_equals_eager_chunk_loop(cuda_dev, rendered, case):
     """icp_run on every step path against the chunked loop written out by
     hand: q, t, s, qk, tk, sk and k torch.equal. Every chunk is a replay of
     one graph, captured once; the paths of EAGER_ROTATIONS (the SVD and
-    Jacobi rotation solves) capture nothing and run every chunk eagerly."""
+    Jacobi rotation solves) capture nothing and run every chunk eagerly. A
+    second registration launches, wrapper by wrapper, what the loop written
+    out launches."""
     from icp_tpu_torch import ICPParams
     from icp_tpu_torch.icp import chunk_graph
     from icp_tpu_torch.icp.run import build_target, chunk_captured, icp_run
@@ -1110,8 +1117,11 @@ def test_icp_run_graph_equals_eager_chunk_loop(cuda_dev, rendered, case):
     fixed, moving, cfg = _step_case(cuda_dev, rendered, case)
     params = ICPParams(alpha=2e2).to(cuda_dev)
     target = build_target(fixed, params, cfg)
+    before = native.launches()
     (want,) = _eager_loop([moving], [target], params, cfg,
                           [identity_state(torch.float32, cuda_dev)])
+    torch.cuda.synchronize()
+    eager_launches = native.launches() - before
     chunk_graph.clear()
     before = _graph_counters()
     got = icp_run(moving, target, params, cfg)
@@ -1126,6 +1136,13 @@ def test_icp_run_graph_equals_eager_chunk_loop(cuda_dev, rendered, case):
         assert chunk_captured(cuda_dev, cfg)
         assert counted["icp.chunk_graph.captures"] == 1 and counted["icp.chunk_eager"] == 0
     _assert_states_equal(got, want, case)
+    # Once captured, a registration replays every chunk: its launches by
+    # wrapper are those of the loop written out.
+    before = native.launches()
+    again = icp_run(moving, target, params, cfg)
+    torch.cuda.synchronize()
+    assert native.launches() - before == eager_launches, case
+    _assert_states_equal(again, want, case)
 
 
 def test_chunk_graph_serves_successive_registrations(cuda_dev):
@@ -1244,7 +1261,6 @@ def test_register_batch_lanes_equal_register_on_card(cuda_dev, rendered, case):
     its copy with 12 % gross outliers); the lanes launch their kernels."""
     from icp_tpu_torch import (Correspondence, ICPConfig, ICPParams, Objective,
                                register, register_batch)
-    from icp_tpu_torch.kernels import fused_step as fs
 
     if case == "plane":
         rng = np.random.default_rng(5)
@@ -1261,11 +1277,12 @@ def test_register_batch_lanes_equal_register_on_card(cuda_dev, rendered, case):
         cfg = ICPConfig(correspondence=Correspondence.BRUTE if case == "brute"
                         else Correspondence.RBC)
     params = ICPParams(alpha=2e2)
-    before = fs.rep_assign_counts.launches
+    before = native.launches()
     batch = register_batch(fixed, moving, params, cfg)
     torch.cuda.synchronize()
     if case != "brute":
-        assert fs.rep_assign_counts.launches - before >= int(batch.k.max()) * fixed.shape[0]
+        assert ((native.launches() - before)["rep_assign_counts"]
+                >= int(batch.k.max()) * fixed.shape[0])
     for i in range(fixed.shape[0]):
         single = register(fixed[i], moving[i], params, cfg)
         for name in ("q", "t", "s", "qk", "tk", "sk", "k"):
@@ -1447,7 +1464,6 @@ def test_sharded_register_world_on_card(cuda_dev, mesh, tmp_path):
     5e-3 deg for POINT, 0.5 mm and 0.05 deg for the robust run)."""
     from icp_tpu_torch import ICPConfig, ICPParams, RobustKernel, register
     from icp_tpu_torch.icp.quaternion import qangle_deg, qconj, qmul
-    from icp_tpu_torch.kernels import native
     from icp_tpu_torch.parallel.dryrun import launch_world
 
     native.load_library()  # built here: the ranks load it and never compile
@@ -1481,20 +1497,18 @@ def test_registration_example_on_card(cuda_dev, tmp_path):
     launched every step."""
     from icp_tpu_torch.examples import registration
     from icp_tpu_torch.icp.quaternion import qangle_deg, qconj, qmul
-    from icp_tpu_torch.kernels import fused_step, table_build
 
-    counters = (fused_step.rep_assign_counts, table_build.bin_table,
-                fused_step.bin_point_moments)
-    for fn in counters:
-        fn.launches = 0
+    before = native.launches()
     st = registration.main(["--synthetic", "--out-dir", str(tmp_path)])
+    ran = native.launches() - before
     k = int(st.k)
     assert st.t.device.type == "cuda" and 1 <= k < 40
     q_b = torch.tensor([0.0, np.sin(0.004), 0.0, np.cos(0.004)], dtype=torch.float32)
     assert float(torch.linalg.vector_norm(st.t.cpu().double() - torch.tensor(
         [10.0, -6.0, 8.0], dtype=torch.float64))) < 10.0
     assert float(qangle_deg(qmul(st.q.cpu(), qconj(q_b)))) < 0.3
-    assert all(fn.launches >= k for fn in counters), [fn.launches for fn in counters]
+    kernels = ("rep_assign_counts", "bin_table", "bin_point_moments")
+    assert all(ran[name] >= k for name in kernels), ran
     assert sorted(p.name for p in tmp_path.iterdir()) == ["fixed.ply", "registered.ply"]
 
 
@@ -1630,7 +1644,7 @@ def test_launch_limits_raise_before_launch(cuda_dev):
 
     bs = importlib.import_module("icp_tpu_torch.kernels.bin_search")
     starts = torch.zeros((1,), dtype=torch.int32, device=cuda_dev)
-    before = tb.bin_table.launches
+    before = native.launches()
     with pytest.raises(ValueError, match="shared memory"):
         tb.bin_table(torch.zeros((4, 456), device=cuda_dev), starts, capacity=4)
     with pytest.raises(ValueError, match="second dimension"):
@@ -1640,4 +1654,4 @@ def test_launch_limits_raise_before_launch(cuda_dev):
             torch.zeros((1, cb), device=cuda_dev), torch.zeros((1, cb, 8), device=cuda_dev))
     with pytest.raises(ValueError, match="second dimension"):
         bs.bin_search(*args)
-    assert tb.bin_table.launches == before
+    assert native.launches() == before

@@ -9,6 +9,9 @@ tests/test_torch_gpu.py and chip_smoke.py.
 """
 
 import tests.torch_one_thread  # noqa: F401  (torch on one CPU thread)
+import re
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -17,7 +20,9 @@ import torch
 from icp_tpu.kernels import fused_step as JF
 from icp_tpu.kernels import table_build as JT
 from icp_tpu_torch.kernels import fused_step as TF
+from icp_tpu_torch.kernels import native
 from icp_tpu_torch.kernels import table_build as TT
+from icp_tpu_torch.runtime import timing
 from tests.utils import make_cloud8, random_quat
 
 ALPHA = 150.0
@@ -57,7 +62,7 @@ def test_rep_assign_counts_twin_matches_jax(rng, m, n_r):
         np.testing.assert_array_equal(rid.numpy(), np.asarray(jr))
         np.testing.assert_array_equal(counts.numpy(), np.asarray(jc))
     assert int(counts.sum()) == m
-    assert TF.rep_assign_counts.launches == 0
+    assert native.launches()["rep_assign_counts"] == 0
 
 
 def test_rep_assign_first_min_tie_break():
@@ -97,7 +102,7 @@ def test_bin_table_twin_bitwise_matches_jax(rng, m, n_r, d, cap):
     last = int(starts[-1])
     assert last + cap > m
     np.testing.assert_array_equal(got[-1, m - last:], 0.0)
-    assert TT.bin_table.launches == 0
+    assert native.launches()["bin_table"] == 0
 
 
 def _moment_inputs(rng, n_r=8, cq=24, cb=32):
@@ -134,7 +139,7 @@ def test_bin_point_moments_twin_matches_jax(rng, weighted):
         assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
     # The empty bin and the invalid rows contribute nothing.
     np.testing.assert_array_equal(got[2], 0.0)
-    assert TF.bin_point_moments.launches == 0
+    assert native.launches()["bin_point_moments"] == 0
 
 
 def test_bin_point_moments_alpha_tensor_equals_float(rng):
@@ -190,3 +195,59 @@ def test_assemble_point_moments_matches_jax(rng):
     # Fully masked frame: no 0/0 reaches the means.
     S11, mf, mm, W = TF.point_moments_from_P(torch.zeros(16, 8, 8), _t(reps), 1e-3)
     assert float(W) == 0.0 and torch.isfinite(mf).all() and torch.isfinite(S11).all()
+
+
+class _Library:
+    """Stands in for the kernels' library: its one entry point records its
+    arguments and returns ``status``."""
+
+    def __init__(self):
+        self.status, self.calls = 0, []
+
+    def icp_bin_table(self, *args):
+        self.calls.append(args)
+        return self.status
+
+    def icp_launch_limit_message(self):
+        return b"bin_table: rows of 456 lanes pass the shared memory of a block"
+
+
+def test_launch_counts_only_a_launch_that_succeeded(monkeypatch):
+    """native.launch hands the entry point its arguments and the device's
+    stream, and counts one kernel.<wrapper> on status 0; a launch limit
+    raises ValueError, any other status RuntimeError, and neither counts."""
+    monkeypatch.setattr(timing.RECORDER, "counters", {})
+    lib = _Library()
+    monkeypatch.setattr(native, "load_library", lambda: lib)
+    monkeypatch.setattr(native, "stream_ptr", lambda device: 77)
+    dev = torch.device("cuda", 0)  # a device object only: nothing runs on it here
+    native.launch("icp_bin_table", dev, 1, 2)
+    assert lib.calls == [(1, 2, 77)]
+    assert timing.counters() == {"kernel.bin_table": 1}
+    assert native.launches() == {"bin_table": 1}
+    lib.status = native.LAUNCH_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        native.launch("icp_bin_table", dev, 3)
+    lib.status = 700
+    with pytest.raises(RuntimeError, match="icp_bin_table: CUDA error 700"):
+        native.launch("icp_bin_table", dev, 4)
+    assert len(lib.calls) == 3
+    assert native.launches() == {"bin_table": 1}
+
+
+def test_every_kernel_launches_through_native_launch():
+    """No module of the port calls an entry point of the kernels' library
+    but kernels/native.py, which launches them all, and K8's workspace
+    query, which launches nothing; every other entry point has a wrapper
+    that launches it through native.launch."""
+    root = Path(native.__file__).resolve().parent.parent
+    direct, launched = [], set()
+    for path in sorted(root.rglob("*.py")):
+        text = path.read_text()
+        launched |= set(re.findall(r'native\.launch\(\s*"(icp_\w+)"', text))
+        if path.name != "native.py" or path.parent.name != "kernels":
+            direct += [(path.relative_to(root).as_posix(), entry)
+                       for entry in re.findall(r"\.(icp_\w+)\s*\(", text)
+                       if entry in native.SIGNATURES]
+    assert direct == [("kernels/knn_moments.py", "icp_bin_knn_moments_workspace")]
+    assert launched == set(native.SIGNATURES) - {"icp_bin_knn_moments_workspace"}

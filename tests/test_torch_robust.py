@@ -15,6 +15,7 @@ from icp_tpu.rbc import construct as JC
 from icp_tpu.rbc import search as JR
 from icp_tpu_torch.interop import index_from_numpy
 from icp_tpu_torch.kernels import fused_step as TF
+from icp_tpu_torch.kernels import native
 from icp_tpu_torch.ops import moments as TM
 from icp_tpu_torch.rbc import search as TR
 from tests.test_torch_kernels import ALPHA, _moment_inputs
@@ -106,7 +107,7 @@ def test_bin_point_moments_robust_twin_matches_jax(rng, robust, weighted):
     # The factor really cut the weights: sum(w) at [3, 3] drops.
     plain = TF.bin_point_moments(*map(_t, args), ALPHA, weighted=weighted).numpy()
     assert got[:, 3, 3].sum() < 0.95 * plain[:, 3, 3].sum()
-    assert TF.bin_point_moments.launches == 0
+    assert native.launches()["bin_point_moments"] == 0
 
 
 def test_bin_min_dists_twin_matches_jax(rng):
@@ -120,7 +121,7 @@ def test_bin_min_dists_twin_matches_jax(rng):
     np.testing.assert_array_equal(np.isfinite(got), fin)
     assert 0 < fin.sum() < fin.size and not fin[2].any()
     np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5)
-    assert TF.bin_min_dists.launches == 0
+    assert native.launches()["bin_min_dists"] == 0
 
 
 def test_bin_min_dists_reads_strided_rows(rng):

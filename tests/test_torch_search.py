@@ -25,6 +25,7 @@ from icp_tpu.rbc import search as JR
 from __graft_entry__ import _synthetic_pair
 from icp_tpu_torch.interop import index_from_numpy
 from icp_tpu_torch.kernels import fused_step as TF
+from icp_tpu_torch.kernels import native
 from icp_tpu_torch.rbc import grouping as TG
 from icp_tpu_torch.rbc import search as TR
 from tests.utils import make_cloud8, random_quat
@@ -69,7 +70,7 @@ def test_bin_search_twin_matches_pallas(rng, v):
     np.testing.assert_array_equal(np.isfinite(s_t.numpy()), fin)
     np.testing.assert_allclose(s_t.numpy()[fin], s_p[fin], rtol=1e-6, atol=1e-3)
     np.testing.assert_array_equal(m_t.numpy(), m_p)
-    assert TB.bin_search.launches == 0
+    assert native.launches()["bin_search"] == 0
 
 
 def test_bin_search_empty_bin_returns_inf_and_slot_zero(rng):
@@ -174,7 +175,7 @@ def test_rep_assign_twin_matches_jax_and_k1(rng, m, n_r):
     np.testing.assert_array_equal(rid.numpy(), pal)
     rid_k1, _ = TF.rep_assign_counts_ref(_t(moving), _t(C), _t(srow))
     assert torch.equal(rid, rid_k1)
-    assert TF.rep_assign.launches == 0
+    assert native.launches()["rep_assign"] == 0
 
 
 def test_rbc_point_assign_matches_jax(rng):

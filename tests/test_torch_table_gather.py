@@ -16,6 +16,7 @@ import torch
 
 from icp_tpu.kernels import table_build as JT
 from icp_tpu.rbc import grouping as JG
+from icp_tpu_torch.kernels import native
 from icp_tpu_torch.kernels import table_build as TT
 from icp_tpu_torch.rbc import grouping as TG
 
@@ -61,7 +62,7 @@ def test_bin_table_gather_form_bitwise(rng, widths):
         pal = np.asarray(JT.bin_table_pallas(jnp.asarray(gathered), jnp.asarray(starts),
                                              capacity=cap, interpret=True))
         np.testing.assert_array_equal(got.view(np.int32), pal.view(np.int32))
-    assert TT.bin_table.launches == 0
+    assert native.launches()["bin_table"] == 0
 
 
 @pytest.mark.parametrize("widths", WIDTHS, ids=lambda w: "x".join(map(str, w)))

@@ -30,7 +30,7 @@ from icp_tpu_torch.icp import gicp as TG
 from icp_tpu_torch.icp.state import ICPState
 from icp_tpu_torch.icp.step import BruteTarget, icp_step
 from icp_tpu_torch.interop import config_from_dict, index_from_numpy
-from icp_tpu_torch.kernels import bin_search, brute_nn  # the K5 and K6 wrappers
+from icp_tpu_torch.kernels import native
 from icp_tpu_torch.ops import moments as TM
 from tests.test_icp_e2e import _make_pair
 from tests.test_torch_slice2 import GATES, N_R, SIDE, _errors, pair  # noqa: F401
@@ -212,7 +212,8 @@ def test_unfused_step_matches_jax(scene, case):
     np.testing.assert_allclose(got.tk.numpy(), np.asarray(want.tk), atol=0.05)
     np.testing.assert_allclose(float(got.sk), float(want.sk), rtol=1e-5)
     assert int(got.k) == 1
-    assert bin_search.launches == 0 and brute_nn.launches == 0
+    ran = native.launches()
+    assert ran["bin_search"] == ran["brute_nn"] == 0
 
 
 @pytest.mark.parametrize("case", ["point", "point_huber_adaptive", "plane",
@@ -268,7 +269,7 @@ def test_register_brute_point_matches_jax(rng):
     _assert_registrations_agree(js, ts)
     assert float(qangle_deg(qmul(jnp.asarray(ts.q.numpy()), qconj(jnp.asarray(q_true))))) < 0.1
     np.testing.assert_allclose(ts.t.numpy(), t_true, atol=1.0)
-    assert brute_nn.launches == 0
+    assert native.launches()["brute_nn"] == 0
 
 
 UNFUSED_GATES = {
